@@ -1,0 +1,8 @@
+"""Weight interop with the JAX package."""
+
+from eadgan_tpu_torch.interop.from_jax import (
+    celeba_discriminator_from_flax,
+    celeba_generator_from_flax,
+)
+
+__all__ = ["celeba_generator_from_flax", "celeba_discriminator_from_flax"]

@@ -1,0 +1,130 @@
+"""Layers whose state follows the JAX package (flax), not torch's defaults.
+
+PyTorch counterpart of ``eadgan_tpu/models/layers.py``.  Plain convs and
+transposed convs are torch's own ``nn.Conv2d`` / ``nn.ConvTranspose2d``
+with torch's default init, which the JAX package's ``ops/init.py`` only
+re-creates.  Two layers carry state that torch would handle differently:
+
+* :class:`SNConv` does flax's spectral normalization (one power step
+  from a stored ``u`` per forward, ``sigma`` stored beside it), not
+  ``torch.nn.utils.spectral_norm``'s ``weight_u``/``weight_v`` scheme;
+* :class:`TorchBatchNorm` normalizes with the biased batch variance
+  (E[x^2] - E[x]^2, as flax computes it) and also updates the running
+  variance with the biased value, where torch's would use the unbiased.
+
+Both update their state in training mode only, and not inside
+:func:`no_stat_updates`.  Layout is NCHW.
+"""
+
+from __future__ import annotations
+
+import contextlib
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+__all__ = ["SNConv", "TorchBatchNorm", "no_stat_updates"]
+
+_SN_EPS = 1e-12
+
+
+def _l2n(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.rsqrt((x * x).sum() + _SN_EPS)
+
+
+class SNConv(nn.Conv2d):
+    """Spectral-normalized ``nn.Conv2d`` with flax ``SpectralNorm`` state.
+
+    Each forward takes one power step over the kernel viewed as
+    (kh*kw*in, out) (here as its transpose, (out, in*kh*kw): the same
+    singular values, with ``v`` permuted):
+    ``v = l2n(u W^T)``, ``u = l2n(v W)``, both detached, then
+    ``sigma = v W u^T`` and the weight is divided by ``sigma`` (unless it
+    is 0).  ``u`` (shape (out,)) and ``sigma`` are stored only in
+    training mode; in eval mode the step is still taken, from the stored
+    ``u``, and discarded.
+    """
+
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1, padding=0):
+        super().__init__(in_channels, out_channels, kernel_size, stride, padding)
+        self.register_buffer("u", torch.randn(out_channels))
+        self.register_buffer("sigma", torch.ones(()))
+        self.update_stats = True
+
+    def normalized_weight(self) -> torch.Tensor:
+        w = self.weight
+        w_mat = w.reshape(w.shape[0], -1)  # (out, K)
+        with torch.no_grad():
+            v = _l2n(self.u @ w_mat)  # (K,)
+            u = _l2n(w_mat @ v)  # (out,)
+        sigma = torch.dot(w_mat @ v, u)
+        if self.training and self.update_stats:
+            with torch.no_grad():
+                self.u.copy_(u)
+                self.sigma.copy_(sigma)
+        return w / torch.where(sigma != 0, sigma, torch.ones_like(sigma))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(x, self.normalized_weight(), self.bias)
+
+
+class TorchBatchNorm(nn.Module):
+    """BatchNorm2d with flax semantics (momentum 0.9 on the running
+    value, i.e. torch momentum 0.1; eps 1e-5).
+
+    Training mode normalizes with the batch mean and the biased batch
+    variance and updates ``running = 0.9 * running + 0.1 * batch`` with
+    both (unless :func:`no_stat_updates` is active).  Eval mode uses the
+    running statistics, like torch ``.eval()``.  Statistics are float32;
+    the output keeps the input's dtype.  ``state_dict`` keys are those of
+    ``nn.BatchNorm2d``.
+    """
+
+    def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.9):
+        super().__init__()
+        self.eps = eps
+        self.momentum = momentum
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+        self.register_buffer("num_batches_tracked", torch.tensor(0, dtype=torch.long))
+        self.update_stats = True
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return F.batch_norm(
+                x, self.running_mean, self.running_var, self.weight, self.bias,
+                training=False, eps=self.eps,
+            )
+        xf = x.float()
+        mean = xf.mean(dim=(0, 2, 3))
+        mean2 = (xf * xf).mean(dim=(0, 2, 3))
+        var = torch.clamp(mean2 - mean * mean, min=0.0)
+        if self.update_stats:
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(m).add_(mean.detach(), alpha=1.0 - m)
+                self.running_var.mul_(m).add_(var.detach(), alpha=1.0 - m)
+                self.num_batches_tracked.add_(1)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean[None, :, None, None]) * mul[None, :, None, None]
+        return (y + self.bias[None, :, None, None]).to(x.dtype)
+
+
+@contextlib.contextmanager
+def no_stat_updates(model: nn.Module):
+    """Inside the block, training-mode forwards of ``model`` leave the
+    BatchNorm running statistics and the spectral-norm ``u``/``sigma``
+    untouched (the JAX package applies a model and discards the updated
+    ``batch_stats``)."""
+    layers = [m for m in model.modules() if isinstance(m, (SNConv, TorchBatchNorm))]
+    saved = [m.update_stats for m in layers]
+    for m in layers:
+        m.update_stats = False
+    try:
+        yield model
+    finally:
+        for m, s in zip(layers, saved):
+            m.update_stats = s

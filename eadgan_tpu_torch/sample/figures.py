@@ -1,0 +1,52 @@
+"""CelebA training sample grids (a copy of ``celeba_training_grids`` from
+the JAX package's ``sample/figures.py``; numpy and PIL only).
+
+The generator is passed as an ``apply`` callable mapping numpy latent
+inputs to NHWC images, so any weights snapshot works.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from eadgan_tpu_torch.sample.grid import save_image
+
+__all__ = ["celeba_training_grids"]
+
+
+def _sweep(code_dim, dims, values):
+    """(len(values), code_dim) codes with ``values`` written into the
+    given dims; everything else zero."""
+    c = np.zeros((values.shape[0], code_dim), np.float32)
+    for d in dims:
+        c[:, d] = values
+    return c
+
+
+def celeba_training_grids(
+    apply_g, real_img, scaled_img, out_dir, batches_done, n_row=10,
+    latent_dim=200, n_classes=10, code_dim=8,
+):
+    """celebA/EAD-GAN_celebA.py:233-285: static + original + scaled +
+    varying_c1..c8 with a row-wise ramp."""
+    rng = np.random.default_rng(batches_done)
+    n = n_row * n_row
+    static_label = np.eye(n_classes, dtype=np.float32)[
+        np.tile(np.arange(n_row), n_row) % n_classes
+    ]
+    z_random = rng.normal(0, 1, (n, latent_dim)).astype(np.float32)
+    zeros_z = np.zeros((n, latent_dim), np.float32)
+    zeros_c = np.zeros((n, code_dim), np.float32)
+
+    static = apply_g(z_random, static_label, zeros_c)
+    save_image(np.asarray(static), f"{out_dir}/static/{batches_done}.png", nrow=n_row)
+    save_image(np.asarray(real_img), f"{out_dir}/original/{batches_done}.png", nrow=n_row)
+    save_image(np.asarray(scaled_img), f"{out_dir}/scaled/{batches_done}.png", nrow=n_row)
+
+    ramp = np.repeat(np.linspace(-1, 1, n_row), n_row).astype(np.float32)
+    for k in range(code_dim):
+        c = _sweep(code_dim, [k], ramp)
+        sample = apply_g(zeros_z, static_label, c)
+        save_image(
+            np.asarray(sample), f"{out_dir}/varying_c{k+1}/{batches_done}.png", nrow=n_row
+        )

@@ -1,0 +1,37 @@
+"""Affine code algebra (PyTorch counterpart of ``eadgan_tpu.transforms``)."""
+
+from eadgan_tpu_torch.transforms.affine import (
+    FAMILIES,
+    PXY,
+    RP,
+    RPQMNXY,
+    RPQXY,
+    AffineFamily,
+    build_affine_matrix,
+    code_to_matrix,
+    code_to_params,
+    compose_relative,
+    inverse_affine,
+    params_to_code,
+    pxy_align_matrix,
+    regularize,
+    regularize_matrix,
+)
+
+__all__ = [
+    "AffineFamily",
+    "PXY",
+    "RP",
+    "RPQXY",
+    "RPQMNXY",
+    "FAMILIES",
+    "code_to_params",
+    "params_to_code",
+    "build_affine_matrix",
+    "code_to_matrix",
+    "inverse_affine",
+    "compose_relative",
+    "regularize_matrix",
+    "regularize",
+    "pxy_align_matrix",
+]

@@ -1,0 +1,115 @@
+"""The port stands alone: no JAX, no JAX package, no quiet CPU fallback,
+and no build when a module is imported."""
+
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from eadgan_tpu_torch.ops import _build
+from eadgan_tpu_torch.train.config import CelebaConfig
+from eadgan_tpu_torch.train.gan_celeba import init_celeba_gan_state
+from eadgan_tpu_torch.utils import platform_device
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PKG = ROOT / "eadgan_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "eadgan_tpu")
+
+
+def _forbidden(name: str) -> bool:
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+def _port_files():
+    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _modules():
+    return [
+        ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
+        for p in sorted(PKG.rglob("*.py"))
+    ]
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_forbidden_imports_in_source(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            assert node.level == 0, f"{path}: relative import"
+            names = [node.module]
+        else:
+            continue
+        bad = [n for n in names if _forbidden(n)]
+        assert not bad, f"{path}:{node.lineno} imports {bad}"
+
+
+def test_importing_every_module_loads_no_jax():
+    """A fresh interpreter imports every port module and chip_smoke.py;
+    none of them may pull in a forbidden module."""
+    code = f"""
+import importlib, importlib.util, sys
+before = set(sys.modules)
+for name in {_modules()!r}:
+    importlib.import_module(name)
+spec = importlib.util.spec_from_file_location("chip_smoke", {str(ROOT / "chip_smoke.py")!r})
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
+new = set(sys.modules) - before
+bad = sorted(m for m in new if any(m == f or m.startswith(f + ".") for f in {FORBIDDEN!r}))
+print("BAD", bad)
+"""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, cwd=ROOT, env=env,
+        timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+
+
+def test_no_card_raises_instead_of_falling_back(monkeypatch):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the no-card error cannot show")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_celeba_gan_state(CelebaConfig())
+    monkeypatch.delenv("EADGAN_PLATFORM", raising=False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        platform_device()
+    monkeypatch.setenv("EADGAN_PLATFORM", "cpu")
+    assert platform_device() == torch.device("cpu")
+    monkeypatch.setenv("EADGAN_PLATFORM", "tpu")
+    with pytest.raises(ValueError):
+        platform_device()
+
+
+def test_kernel_module_imports_without_nvcc(tmp_path):
+    """Building happens at first launch, so the kernel modules import on
+    a machine with no nvcc; asking for the library there raises."""
+    code = """
+import eadgan_tpu_torch.ops.stn_cuda as m
+from eadgan_tpu_torch.ops import _build
+try:
+    _build.load_library()
+except RuntimeError as e:
+    print("RAISED", "nvcc not found" in str(e))
+"""
+    env = dict(os.environ, PATH=str(tmp_path), CUDA_HOME=str(tmp_path), PYTHONPATH=str(ROOT))
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, cwd=ROOT, env=env,
+        timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "RAISED True" in out.stdout, out.stdout
+
+
+def test_find_nvcc_raises_without_nvcc(tmp_path, monkeypatch):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.find_nvcc()
