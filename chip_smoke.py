@@ -7,18 +7,28 @@ CUDA card and the CUDA toolkit (nvcc) and runs five phases, failing with
 a non-zero exit on the first that fails:
 
 1. environment: card name and power limit, torch/CUDA versions, TF32
-   switched off, and the build of every kernel from ``csrc/``;
-2. each kernel against its plain PyTorch version on the card, over the
-   cases of ``tests/test_stn_pallas.py`` and the CelebA shape, f32 and
-   bf16 (one JSON line per case);
+   switched off, and the build of every kernel from ``csrc/`` (one nvcc
+   per source, all at once);
+2. each kernel against its plain PyTorch version on the card: the warp
+   over the cases of ``tests/test_stn_pallas.py`` and the CelebA shape,
+   f32 and bf16; the fused conv + LeakyReLU in bf16 over the test shapes,
+   the CelebA discriminator's layer 2 at batch 128 and a Cout that is no
+   multiple of the tile, with the probe's small bias and with one as
+   large as the conv output (one JSON line per case);
 3. the CelebA train step on the CPU and on the card from the same
-   weights and draws, three steps at the low-lr config;
-4. the trainer, ``python -m eadgan_tpu_torch.cli.celeba --batch_size 128
-   --max_steps 20``, on synthetic data, with the kernels' launch counts
-   read around it;
-5. timing with CUDA events: the B=128 step, and each kernel beside its
-   bound, its plain version and the library call that computes the same
-   function.
+   weights and draws, three steps at the low-lr config, in f32 and in
+   bf16;
+4. the main paths, each with its kernel's launch count set to 0 just
+   before and read just after: the trainer, ``python -m
+   eadgan_tpu_torch.cli.celeba --batch_size 128 --max_steps 20`` in f32
+   on synthetic data, saving a train state at step 0 (mid-epoch), then
+   ``--resume auto --compute bf16`` continuing it to the planned total;
+   and the fused conv's probe, ``python -m
+   eadgan_tpu_torch.tools.fused_conv_probe`` at its defaults, whose
+   record gives the fused conv's kernel and library times;
+5. timing with CUDA events: the B=128 step in f32 and in bf16, the warp
+   beside its bound, its plain version and the library call that computes
+   the same function, and the fused conv's plain version and bound.
 
 Its last lines are the ``{"kernels": [...]}`` record, the ``nvidia-smi``
 name/power-limit line, and ``{"ok": true, "device": {...}}``.
@@ -26,6 +36,7 @@ name/power-limit line, and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -41,6 +52,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # published peaks of one H100 SXM (NVIDIA data sheet), used for bounds
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+BF16_TENSOR_FLOPS_PER_S = 989e12  # dense
 
 
 def fail(msg: str) -> None:
@@ -63,59 +75,6 @@ def nvidia_smi_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip()
-
-
-# --- timing helpers ---------------------------------------------------------
-
-
-def sleep_cycles_per_ms(torch) -> float:
-    """Clock cycles ``torch.cuda._sleep`` spins per millisecond."""
-    cycles = 20_000_000
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    torch.cuda.synchronize()
-    start.record()
-    torch.cuda._sleep(cycles)
-    end.record()
-    torch.cuda.synchronize()
-    return cycles / start.elapsed_time(end)
-
-
-def device_ms(torch, fn, iters: int, cycles_per_ms: float, repeats: int = 5) -> float:
-    """Median device time of one ``fn()`` call.  Each sample first parks
-    the stream behind a spin kernel long enough for the host to enqueue
-    all ``iters`` calls, so the events bracket back-to-back device work
-    only, not the host's launch overhead."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    host_ms = (time.perf_counter() - t0) * 1e3
-    torch.cuda.synchronize()
-    samples = []
-    for _ in range(repeats):
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        torch.cuda._sleep(int(cycles_per_ms * (2.0 * host_ms + 5.0)))
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        samples.append(start.elapsed_time(end) / iters)
-    return statistics.median(samples)
-
-
-def host_ms_per_call(torch, fn, iters: int) -> float:
-    """Host clock per call of back-to-back ``fn()``, ending in a
-    synchronize: what a caller pays, launch overhead included."""
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    torch.cuda.synchronize()
-    return (time.perf_counter() - t0) * 1e3 / iters
 
 
 # --- phases -----------------------------------------------------------------
@@ -149,32 +108,72 @@ def phase_environment(torch):
             print(f"  ptxas: {line.strip()}", flush=True)
 
 
+WARP_CASES = [
+    # name, shape, family, code scale, padding, dtype
+    ("c1", (4, 64, 64, 1), "RP", 1.0, "border", "float32"),
+    ("c1", (4, 64, 64, 1), "RP", 1.0, "zeros", "float32"),
+    ("c3", (4, 64, 64, 3), "RP", 1.0, "border", "float32"),
+    ("c3", (4, 64, 64, 3), "RP", 1.0, "zeros", "float32"),
+    ("non_square", (2, 32, 64, 3), "RP", 1.0, "border", "float32"),
+    ("non_square", (2, 32, 64, 3), "RP", 1.0, "zeros", "float32"),
+    ("odd_height", (2, 17, 16, 1), "RP", 1.0, "border", "float32"),
+    ("extreme_x3", (2, 16, 16, 1), "RPQMNXY", 3.0, "border", "float32"),
+    ("extreme_x3", (2, 16, 16, 1), "RPQMNXY", 3.0, "zeros", "float32"),
+    ("even_n", (6, 64, 64, 1), "RP", 1.0, "border", "float32"),
+    ("celeba_main", (128, 64, 64, 3), "RPQXY", 1.0, "border", "float32"),
+    ("celeba_main", (128, 64, 64, 3), "RPQXY", 1.0, "zeros", "float32"),
+    ("c1", (4, 64, 64, 1), "RP", 1.0, "zeros", "bfloat16"),
+    ("extreme_x3", (2, 16, 16, 1), "RPQMNXY", 3.0, "border", "bfloat16"),
+    ("celeba_main", (128, 64, 64, 3), "RPQXY", 1.0, "border", "bfloat16"),
+]
+
+# (batch, hw, cin, cout) of the fused conv: the CPU tests' shapes, the
+# CelebA discriminator's layer 2 at batch 128 (the probe's default, the
+# main path's shape) and Couts that are no multiple of the 128 tile; each
+# with the probe's bias, 0.01 * N(0, 1), and with N(0, 1), as large as the
+# conv output, which no kernel that drops the bias or reads another
+# channel's can match
+CONV_CASES = [
+    ("small", (2, 8, 16, 32)),
+    ("cout40", (2, 8, 16, 40)),
+    ("full_width_b2", (2, 32, 128, 256)),
+    ("celeba_d2_main", (128, 32, 128, 256)),
+    ("cout136", (3, 6, 24, 136)),
+]
+CONV_BIAS = (0.01, 1.0)
+CONV_MAIN = (128, 32, 128, 256)
+CONV_TOL_REL = 2e-2  # of max(1, max |ref|): the JAX tool's bar
+
+
+def conv_inputs(torch, shape, bias=0.01, seed=0):
+    """bf16 (x, w, b) on the card, drawn as the probe draws them (bias
+    scale 0.01)."""
+    import numpy as np
+
+    batch, hw, cin, cout = shape
+    rng = np.random.default_rng(seed)
+    arrays = (
+        rng.standard_normal((batch, hw, hw, cin)),
+        0.05 * rng.standard_normal((4, 4, cin, cout)),
+        bias * rng.standard_normal((cout,)),
+    )
+    return [torch.from_numpy(a).to(torch.bfloat16).cuda() for a in arrays]
+
+
 def phase_kernel_vs_plain(torch):
-    """Returns the kernel's max abs error at the main path's shape (f32)."""
+    """Returns each kernel's max abs error at the main path's shape."""
+    from eadgan_tpu_torch import transforms
+    from eadgan_tpu_torch.ops.fused_conv import fused_conv_lrelu_plain, mismatch
+    from eadgan_tpu_torch.ops.fused_conv_cuda import fused_conv_lrelu_cuda
     from eadgan_tpu_torch.ops.stn import warp_affine_plain
     from eadgan_tpu_torch.ops.stn_cuda import warp_affine_cuda
-    from eadgan_tpu_torch.transforms import RP, RPQMNXY, RPQXY, code_to_matrix
+    from eadgan_tpu_torch.transforms import RPQXY, code_to_matrix
 
-    cases = [
-        # name, shape, family, code scale, padding, dtype
-        ("c1", (4, 64, 64, 1), RP, 1.0, "border", torch.float32),
-        ("c1", (4, 64, 64, 1), RP, 1.0, "zeros", torch.float32),
-        ("c3", (4, 64, 64, 3), RP, 1.0, "border", torch.float32),
-        ("c3", (4, 64, 64, 3), RP, 1.0, "zeros", torch.float32),
-        ("non_square", (2, 32, 64, 3), RP, 1.0, "border", torch.float32),
-        ("non_square", (2, 32, 64, 3), RP, 1.0, "zeros", torch.float32),
-        ("odd_height", (2, 17, 16, 1), RP, 1.0, "border", torch.float32),
-        ("extreme_x3", (2, 16, 16, 1), RPQMNXY, 3.0, "border", torch.float32),
-        ("extreme_x3", (2, 16, 16, 1), RPQMNXY, 3.0, "zeros", torch.float32),
-        ("even_n", (6, 64, 64, 1), RP, 1.0, "border", torch.float32),
-        ("celeba_main", (128, 64, 64, 3), RPQXY, 1.0, "border", torch.float32),
-        ("celeba_main", (128, 64, 64, 3), RPQXY, 1.0, "zeros", torch.float32),
-        ("c1", (4, 64, 64, 1), RP, 1.0, "zeros", torch.bfloat16),
-        ("extreme_x3", (2, 16, 16, 1), RPQMNXY, 3.0, "border", torch.bfloat16),
-        ("celeba_main", (128, 64, 64, 3), RPQXY, 1.0, "border", torch.bfloat16),
-    ]
+    errs = {}
     gen = torch.Generator().manual_seed(0)
-    for name, shape, family, scale, pad, dtype in cases:
+    for name, shape, family, scale, pad, dtype_name in WARP_CASES:
+        family = getattr(transforms, family)
+        dtype = getattr(torch, dtype_name)
         img = torch.rand(shape, generator=gen).to("cuda", dtype)
         code = (torch.rand(shape[0], family.n_affine, generator=gen) * 2 - 1) * scale
         matrix = code_to_matrix(family, code.cuda())
@@ -184,13 +183,13 @@ def phase_kernel_vs_plain(torch):
         check(got.dtype == dtype and got.shape == img.shape, f"{name}: dtype/shape")
         err = (got.float() - ref.float()).abs().max().item()
         tol = 2e-5 if dtype == torch.float32 else 1e-2
-        emit({"case": name, "shape": list(shape), "padding": pad,
-              "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err, "tol": tol})
+        emit({"case": name, "kernel": "warp_affine", "shape": list(shape), "padding": pad,
+              "dtype": dtype_name, "max_abs_err": err, "tol": tol})
         check(math.isfinite(err) and err <= tol, f"kernel vs plain {name} {pad} {dtype}: {err}")
         if name == "celeba_main" and pad == "border" and dtype == torch.float32:
-            main_err = err
+            errs["warp_affine"] = err
 
-    # gradients through the kernel's autograd wrapper equal the plain ones
+    # gradients through the warp's autograd wrapper equal the plain ones
     img = torch.rand((2, 16, 16, 3), generator=gen).cuda()
     code = (torch.rand(2, 5, generator=gen) * 2 - 1).cuda()
     grads = []
@@ -202,7 +201,38 @@ def phase_kernel_vs_plain(torch):
     for a, b in zip(*grads):
         err = (a - b).abs().max().item()
         check(err <= 1e-4, f"warp gradient through the kernel wrapper: {err}")
-    return main_err
+
+    # per element at most two bf16 steps of |ref| plus 1e-3 of max |ref|
+    # ("elem" <= 1), and the JAX tool's bar on the largest difference
+    for name, shape in CONV_CASES:
+        for bias in CONV_BIAS:
+            x, w, b = conv_inputs(torch, shape, bias)
+            got = fused_conv_lrelu_cuda(x, w, b)
+            ref = fused_conv_lrelu_plain(x, w, b)
+            torch.cuda.synchronize()
+            check(got.dtype == torch.bfloat16 and got.shape == ref.shape, f"{name}: dtype/shape")
+            diff = mismatch(got, ref)
+            emit({"case": name, "kernel": "fused_conv_lrelu", "shape": list(shape), "bias": bias,
+                  "dtype": "bfloat16", **diff, "tol_rel": CONV_TOL_REL, "tol_elem": 1.0})
+            check(math.isfinite(diff["rel"]) and diff["rel"] < CONV_TOL_REL and diff["elem"] <= 1.0,
+                  f"fused conv vs plain {name} bias {bias}: {diff}")
+            if shape == CONV_MAIN and bias == 0.01:
+                errs["fused_conv_lrelu"] = diff["max_abs_err"]
+    # forward-only: an input that needs a gradient is refused, not detached
+    try:
+        fused_conv_lrelu_cuda(x, w.clone().requires_grad_(True), b)
+    except RuntimeError as e:
+        check("forward-only" in str(e), f"fused conv refused a grad input for another reason: {e}")
+    else:
+        fail("fused conv accepted an input that requires grad")
+    return errs
+
+
+# CPU vs CUDA step losses: float32 (TF32 off) agrees to summation order at
+# step 0 and drifts with Adam's sign steps after; bf16 rounds every conv
+# output, and cuDNN and the CPU round at other points, so a few bf16 steps
+# (2^-8 each) apart at step 0
+STEP_RTOL = {"f32": (1e-3, 3e-2), "bf16": (1e-2, 5e-2)}
 
 
 def phase_step_parity(torch):
@@ -214,85 +244,164 @@ def phase_step_parity(torch):
     batch = 4
     config = CelebaConfig(batch_size=batch, g_lr=1e-4, d_lr=2e-5, info_lr=2e-5)
     step = make_celeba_gan_step(config)
-    states = {dev: init_celeba_gan_state(config, device=dev, seed=0) for dev in ("cpu", "cuda")}
-    rng = np.random.default_rng(0)
-    imgs = rng.uniform(-1, 1, (batch, 64, 64, 3)).astype(np.float32)
-    losses = {"cpu": [], "cuda": []}
-    for s in range(3):
-        fixed = {
-            "z": rng.standard_normal((batch, 200)).astype(np.float32),
-            "sampled_labels": rng.integers(0, 10, batch),
-            "code": rng.uniform(-1, 1, (batch, 8)).astype(np.float32),
+    for compute, dtype in (("f32", None), ("bf16", torch.bfloat16)):
+        states = {
+            dev: init_celeba_gan_state(config, device=dev, seed=0, dtype=dtype)
+            for dev in ("cpu", "cuda")
         }
-        for dev, state in states.items():
-            _, m = step(state, torch.from_numpy(imgs).to(dev), fixed)
-            losses[dev].append({k: float(v) for k, v in m.items()})
-        rtol = 1e-3 if s == 0 else 3e-2
-        for k, ref in losses["cpu"][s].items():
-            got = losses["cuda"][s][k]
-            rel = abs(got - ref) / max(abs(ref), 1e-12)
-            emit({"step_parity": s, "loss": k, "cpu": ref, "cuda": got, "rel": rel, "rtol": rtol})
-            check(math.isfinite(got) and rel <= rtol, f"step {s} {k}: cpu {ref} cuda {got}")
+        rng = np.random.default_rng(0)
+        imgs = rng.uniform(-1, 1, (batch, 64, 64, 3)).astype(np.float32)
+        for s in range(3):
+            fixed = {
+                "z": rng.standard_normal((batch, 200)).astype(np.float32),
+                "sampled_labels": rng.integers(0, 10, batch),
+                "code": rng.uniform(-1, 1, (batch, 8)).astype(np.float32),
+            }
+            losses = {}
+            for dev, state in states.items():
+                _, m = step(state, torch.from_numpy(imgs).to(dev), fixed)
+                losses[dev] = {k: float(v) for k, v in m.items()}
+            rtol = STEP_RTOL[compute][0 if s == 0 else 1]
+            for k, ref in losses["cpu"].items():
+                got = losses["cuda"][k]
+                rel = abs(got - ref) / max(abs(ref), 1e-12)
+                emit({"step_parity": s, "compute": compute, "loss": k, "cpu": ref, "cuda": got,
+                      "rel": rel, "rtol": rtol})
+                check(math.isfinite(got) and rel <= rtol, f"{compute} step {s} {k}: cpu {ref} cuda {got}")
+
+
+@contextlib.contextmanager
+def environ(**values):
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def run_module(torch, module: str, argv) -> None:
+    """``python -m module argv...`` in this process, as a user runs it."""
+    saved = sys.argv
+    sys.argv = [module, *argv]
+    try:
+        runpy.run_module(module, run_name="__main__", alter_sys=True)
+    finally:
+        sys.argv = saved
+    torch.cuda.synchronize()
+
+
+def read_records(path):
+    records = [json.loads(line) for line in open(path)]
+    for r in records:
+        check(math.isfinite(r["d_loss"]) and math.isfinite(r["g_loss"]), f"loss {r}")
+    return records
+
+
+def loop_ms(records) -> float:
+    """Median host clock between consecutive log records from step 2 on:
+    one loop step (the step, the batch's gather and its copy to the
+    card), past step 0's sample grids and saves."""
+    ts = [r["t"] for r in records]
+    return statistics.median(b - a for a, b in zip(ts[2:], ts[3:])) * 1e3
 
 
 def phase_trainer(torch):
+    """The trainer: 20 f32 steps (4 epochs of 5 batches, the planned
+    total), sample grids and a train state saved at step 0 only, then
+    ``--resume auto --compute bf16`` continuing from step 1, inside epoch
+    0, to the planned total."""
     from eadgan_tpu_torch.ops import stn_cuda
+    from eadgan_tpu_torch.train.checkpoint import saved_steps
 
-    max_steps = 20
-    with tempfile.TemporaryDirectory(prefix="eadgan_smoke_") as tmp:
-        jsonl = os.path.join(tmp, "metrics.jsonl")
-        argv = [
-            "eadgan_tpu_torch.cli.celeba", "--batch_size", "128", "--max_steps", str(max_steps),
-            "--data_dir", tmp, "--out_dir", os.path.join(tmp, "images"), "--ckpt_dir", tmp,
-            "--jsonl", jsonl,
+    module = "eadgan_tpu_torch.cli.celeba"
+    stem = "celeba_train_state"  # the trainer's train-state files (not imported: runpy runs it)
+    total = 20
+    with tempfile.TemporaryDirectory(prefix="eadgan_smoke_") as tmp, \
+            environ(EADGAN_PLATFORM="cuda", EADGAN_SYNTH_N="640"):
+        common = [
+            "--batch_size", "128", "--n_epochs", "4", "--data_dir", tmp,
+            "--out_dir", os.path.join(tmp, "images"), "--ckpt_dir", tmp, "--keep_states", "1",
         ]
-        saved_argv = sys.argv
-        os.environ["EADGAN_PLATFORM"] = "cuda"
-        sys.argv = argv
+        jsonl = os.path.join(tmp, "metrics.jsonl")
+        # one sample interval is the whole run: grids, the checkpoint and
+        # the train state are written at step 0 only
         stn_cuda.reset_launch_count()  # counts from here read the main path only
         t0 = time.perf_counter()
-        try:
-            runpy.run_module("eadgan_tpu_torch.cli.celeba", run_name="__main__", alter_sys=True)
-        finally:
-            sys.argv = saved_argv
-        torch.cuda.synchronize()
+        run_module(torch, module, common + ["--max_steps", str(total), "--sample_interval",
+                                            str(total), "--jsonl", jsonl])
         wall = time.perf_counter() - t0
         launches = stn_cuda.launch_count
 
-        records = [json.loads(line) for line in open(jsonl)]
-        check(len(records) == max_steps, f"trainer logged {len(records)} steps")
-        for r in records:
-            check(math.isfinite(r["d_loss"]) and math.isfinite(r["g_loss"]), f"loss {r}")
+        records = read_records(jsonl)
+        check([r["step"] for r in records] == list(range(total)), "f32 trainer steps")
         ckpt = torch.load(os.path.join(tmp, "checkpoint_0.tar"), weights_only=True)
-        check(
-            set(ckpt) == {"discriminator_state_dict", "generator_state_dict", "epoch", "batches_done"},
-            f"checkpoint keys {sorted(ckpt)}",
-        )
+        check(set(ckpt) == {"discriminator_state_dict", "generator_state_dict", "epoch",
+                            "batches_done"}, f"checkpoint keys {sorted(ckpt)}")
         for name in ["static", "original", "scaled"] + [f"varying_c{k}" for k in range(1, 9)]:
             check(os.path.isfile(os.path.join(tmp, "images", name, "0.png")), f"grid {name}")
-        # the host clock between consecutive log records is one loop step
-        ts = [r["t"] for r in records]
-        loop_ms = statistics.median(b - a for a, b in zip(ts[2:], ts[3:])) * 1e3
-    check(launches >= max_steps, f"warp kernel launched {launches} times in {max_steps} steps")
-    emit({"trainer": "eadgan_tpu_torch.cli.celeba", "batch_size": 128, "steps": max_steps,
-          "wall_s": wall, "loop_step_ms_host_clock": loop_ms, "warp_launches": launches,
+        check(saved_steps(tmp, stem) == [0], f"train states {saved_steps(tmp, stem)}")
+        saved = torch.load(os.path.join(tmp, f"{stem}_0.ckpt"), weights_only=True)
+        check(saved["step"] == 1, f"saved step {saved['step']}")
+
+        jsonl2 = os.path.join(tmp, "resumed.jsonl")
+        t0 = time.perf_counter()
+        run_module(torch, module, common + ["--resume", "auto", "--compute", "bf16",
+                                            "--sample_interval", "1000", "--jsonl", jsonl2])
+        resume_wall = time.perf_counter() - t0
+        resumed = read_records(jsonl2)
+        # step 1 is inside epoch 0 (5 batches an epoch): its 4 remaining
+        # batches run, then 3 whole epochs, ending at the planned total
+        check([r["step"] for r in resumed] == list(range(1, total)),
+              f"resumed steps {[r['step'] for r in resumed]}")
+    check(launches >= total, f"warp kernel launched {launches} times in {total} steps")
+    emit({"trainer": module, "batch_size": 128, "steps": total, "compute": "f32",
+          "wall_s": wall, "loop_step_ms_host_clock": loop_ms(records), "warp_launches": launches,
           "last": records[-1]})
+    emit({"trainer_resumed": module, "compute": "bf16", "from_step": 1,
+          "steps": [r["step"] for r in resumed], "wall_s": resume_wall,
+          "loop_step_ms_host_clock": loop_ms(resumed), "last": resumed[-1]})
     return {"warp_affine": launches}
 
 
-def phase_timing(torch, warp_max_abs_err):
-    import torch.nn.functional as F
+def phase_probe(torch):
+    """The fused conv's main path: its probe entry point at its defaults."""
+    from eadgan_tpu_torch.ops import fused_conv_cuda
 
-    from eadgan_tpu_torch.ops.stn import warp_affine_plain
-    from eadgan_tpu_torch.ops.stn_cuda import warp_affine_cuda
+    with tempfile.TemporaryDirectory(prefix="eadgan_probe_") as tmp:
+        out = os.path.join(tmp, "probe.json")
+        fused_conv_cuda.reset_launch_count()  # counts from here read the main path only
+        run_module(torch, "eadgan_tpu_torch.tools.fused_conv_probe", ["--out", out])
+        launches = fused_conv_cuda.launch_count
+        with open(out) as f:
+            record = json.load(f)
+    batch, hw, cin, cout = CONV_MAIN
+    check(record["shape"] == [batch, hw, hw, cin, cout], f"probe shape {record['shape']}")
+    check(record["timing"] == "cuda_events" and "cuda_fused" in record, f"probe record {record}")
+    check(record["rel"] < CONV_TOL_REL, f"probe: kernel vs library rel {record['rel']}")
+    check(launches >= 1, f"fused conv launched {launches} times by its probe")
+    emit({"probe": "eadgan_tpu_torch.tools.fused_conv_probe", "fused_conv_launches": launches,
+          "record": record})
+    return {"fused_conv_lrelu": launches}, record
+
+
+def bound(bytes_moved, flops, flops_per_s):
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / flops_per_s * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+def time_step(torch, compute, dtype):
     from eadgan_tpu_torch.train.config import CelebaConfig
     from eadgan_tpu_torch.train.gan_celeba import init_celeba_gan_state, make_celeba_gan_step
-    from eadgan_tpu_torch.transforms import RPQXY, code_to_matrix
 
-    # the f32 train step at B=128
     batch = 128
     config = CelebaConfig(batch_size=batch)
-    state = init_celeba_gan_state(config, device="cuda", seed=0)
+    state = init_celeba_gan_state(config, device="cuda", seed=0, dtype=dtype)
     step = make_celeba_gan_step(config)
     gen = torch.Generator(device="cuda").manual_seed(1)
     imgs = torch.rand((batch, 64, 64, 3), generator=gen, device="cuda") * 2 - 1
@@ -312,13 +421,22 @@ def phase_timing(torch, warp_max_abs_err):
     host_ms = (time.perf_counter() - t0) * 1e3 / 30
     step_ms = statistics.median(s.elapsed_time(e) for s, e in events)
     check(all(math.isfinite(float(v)) for v in metrics.values()), f"step metrics {metrics}")
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    emit({"step": "celeba_f32", "batch_size": batch, "median_ms_cuda_events": step_ms,
+    emit({"step": f"celeba_{compute}", "batch_size": batch, "median_ms_cuda_events": step_ms,
           "mean_ms_host_clock": host_ms, "img_per_s": batch / step_ms * 1e3,
-          "peak_mem_gib": peak_gib, "samples": 30})
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "samples": 30})
+    del state
 
-    # the warp at the main path's shape
-    n, h, w, c = 128, 64, 64, 3
+
+def time_warp(torch, n, h, w, c, cycles, gen):
+    """(kernel, plain, library, wrapper host) ms and the bound of the warp
+    at one f32 shape, border padding."""
+    import torch.nn.functional as F
+
+    from eadgan_tpu_torch.ops.stn import warp_affine_plain
+    from eadgan_tpu_torch.ops.stn_cuda import warp_affine_cuda
+    from eadgan_tpu_torch.transforms import RPQXY, code_to_matrix
+    from eadgan_tpu_torch.utils.timing import device_ms, host_ms_per_call
+
     img = torch.rand((n, h, w, c), generator=gen, device="cuda") * 2 - 1
     code = torch.rand((n, 8), generator=gen, device="cuda") * 2 - 1
     matrix = code_to_matrix(RPQXY, code[:, :5])
@@ -332,35 +450,77 @@ def phase_timing(torch, warp_max_abs_err):
     # the yardstick computes the same function; its own grid arithmetic
     # rounds differently (measured 1.6e-5 on an H100), hence 1e-4
     lib_err = (library().permute(0, 2, 3, 1) - warp_affine_cuda(img, matrix)).abs().max().item()
-    check(lib_err <= 1e-4, f"library call disagrees with the kernel: {lib_err}")
-    cpm = sleep_cycles_per_ms(torch)
-    kernel_ms = device_ms(torch, lambda: warp_affine_cuda(img, matrix), 200, cpm)
-    plain_ms = device_ms(torch, lambda: warp_affine_plain(img, matrix), 20, cpm)
-    library_ms = device_ms(torch, library, 100, cpm)
-    wrapper_ms = host_ms_per_call(torch, lambda: warp_affine_cuda(img, matrix), 200)
+    check(lib_err <= 1e-4, f"library call disagrees with the warp kernel: {lib_err}")
     elem = n * h * w * c
     bytes_moved = 2 * elem * 4 + n * 6 * 4  # image read once, output written once, theta
     flops = elem * 7 + n * h * w * 25  # 4-tap weighted sum per element, coordinates per pixel
-    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / F32_FLOPS_PER_S * 1e3
-    kernel = {
+    bound_ms, bound_by = bound(bytes_moved, flops, F32_FLOPS_PER_S)
+    return {
+        "shape": [n, h, w, c],
+        "ms": device_ms(lambda: warp_affine_cuda(img, matrix), 200, cycles),
+        "plain_ms": device_ms(lambda: warp_affine_plain(img, matrix), 20, cycles),
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": device_ms(library, 100, cycles),
+        "wrapper_call_ms_host_clock": host_ms_per_call(lambda: warp_affine_cuda(img, matrix), 200),
+        "library_vs_kernel_max_abs_err": lib_err,
+    }
+
+
+def phase_timing(torch, errs, probe):
+    """Kernel records for the ``kernels`` line; the fused conv's kernel
+    and library times are those its probe measured on the main path."""
+    from eadgan_tpu_torch.ops.fused_conv import fused_conv_lrelu_plain
+    from eadgan_tpu_torch.tools.fused_conv_probe import counts
+    from eadgan_tpu_torch.utils.timing import device_ms, sleep_cycles_per_ms
+
+    # the train step at B=128, f32 (TF32 off) and bf16
+    time_step(torch, "f32", None)
+    time_step(torch, "bf16", torch.bfloat16)
+
+    cycles = sleep_cycles_per_ms()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    # the warp at the main path's shape, and at C = 1, where the TPU took
+    # its pair kernel (stn_pallas.py:116)
+    warp = time_warp(torch, 128, 64, 64, 3, cycles, gen)
+    warp_c1 = time_warp(torch, 128, 64, 64, 1, cycles, gen)
+    emit({"warp_timing": warp, "warp_timing_c1": warp_c1})
+    warp_kernel = {
         "name": "warp_affine",
         "route": "cuda",
         "source": "eadgan_tpu_torch/csrc/warp_affine.cu",
         "replaces": "eadgan_tpu/ops/stn_pallas.py:50",
         "also_replaces": "eadgan_tpu/ops/stn_pallas.py:116",
-        "shape": [n, h, w, c],
         "launches": None,
-        "max_abs_err": warp_max_abs_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": library_ms,
-        "wrapper_call_ms_host_clock": wrapper_ms,
+        "max_abs_err": errs["warp_affine"],
+        **{k: warp[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                "wrapper_call_ms_host_clock")},
+        **{f"c1_{k}": warp_c1[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "library_ms")},
     }
-    emit({"warp_timing": kernel, "library_vs_kernel_max_abs_err": lib_err})
-    return [kernel]
+
+    # the fused conv at its main path's shape: its plain version and bound
+    x, w, b = conv_inputs(torch, CONV_MAIN)
+    nbytes, flops = counts(*CONV_MAIN)
+    bound_ms, bound_by = bound(nbytes, flops, BF16_TENSOR_FLOPS_PER_S)
+    conv_kernel = {
+        "name": "fused_conv_lrelu",
+        "route": "cuda",
+        "source": "eadgan_tpu_torch/csrc/fused_conv_lrelu.cu",
+        "replaces": "tools/fused_conv_probe.py:61",
+        "shape": list(CONV_MAIN),
+        "launches": None,
+        "max_abs_err": errs["fused_conv_lrelu"],
+        "ms": probe["cuda_fused"],
+        "plain_ms": device_ms(lambda: fused_conv_lrelu_plain(x, w, b), 20, cycles),
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": probe["library_conv_bias_lrelu"],
+        "library_conv_only_ms": probe["library_conv_only"],
+        "tflop_per_s": flops / probe["cuda_fused"] / 1e9,
+        "library_vs_kernel_rel": probe["rel"],
+    }
+    emit({"fused_conv_timing": conv_kernel})
+    return [warp_kernel, conv_kernel]
 
 
 def main() -> None:
@@ -373,15 +533,18 @@ def main() -> None:
     print("== phase 1: environment and kernel build", flush=True)
     phase_environment(torch)
     print("== phase 2: kernels vs plain versions on the card", flush=True)
-    warp_err = phase_kernel_vs_plain(torch)
-    print("== phase 3: CelebA step, CPU vs CUDA", flush=True)
+    errs = phase_kernel_vs_plain(torch)
+    print("== phase 3: CelebA step, CPU vs CUDA, f32 and bf16", flush=True)
     phase_step_parity(torch)
-    print("== phase 4: trainer (main path)", flush=True)
+    print("== phase 4: main paths (trainer, then the fused conv's probe)", flush=True)
     launches = phase_trainer(torch)
+    probe_launches, probe = phase_probe(torch)
+    launches.update(probe_launches)
     print("== phase 5: timing", flush=True)
-    kernels = phase_timing(torch, warp_err)
+    kernels = phase_timing(torch, errs, probe)
     for k in kernels:
         k["launches"] = launches[k["name"]]
+        check(k["launches"] > 0, f"{k['name']} was not launched on its main path")
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     emit({"kernels": kernels})
     print(nvidia_smi_line(), flush=True)

@@ -4,8 +4,11 @@
 ``python -m eadgan_tpu.cli.celeba``.  Reads an image folder (synthetic
 stand-in faces when it is empty), trains the shared-info-head step on
 the CUDA card (``EADGAN_PLATFORM=cpu`` for the CPU), writes sample grids
-every ``sample_interval`` steps and an atomic ``checkpoint_%d.tar`` with
-both models plus epoch/batches_done every ``15 * sample_interval``.
+every ``sample_interval`` steps and, every ``15 * sample_interval``, an
+atomic ``checkpoint_%d.tar`` with both models plus epoch/batches_done and
+beside it the full train state ``celeba_train_state_%d.ckpt``, which
+``--resume`` restores (``--keep_states N`` keeps the N newest).
+``--compute bf16`` runs the models in bf16 with float32 parameters.
 """
 
 from __future__ import annotations
@@ -15,16 +18,18 @@ import os
 
 import torch
 
-from eadgan_tpu_torch.cli.common import add_adam_args, add_run_args
+from eadgan_tpu_torch.cli.common import add_adam_args, add_run_args, maybe_resume, resolve_compute_dtype
 from eadgan_tpu_torch.data import load_image_folder
 from eadgan_tpu_torch.ops import warp_affine
 from eadgan_tpu_torch.sample.figures import celeba_training_grids
-from eadgan_tpu_torch.train.checkpoint import cpu_state_dict, save_checkpoint
+from eadgan_tpu_torch.train.checkpoint import cpu_state_dict, save_checkpoint, save_train_state
 from eadgan_tpu_torch.train.config import CelebaConfig
 from eadgan_tpu_torch.train.engine import generator_apply, run_epochs
 from eadgan_tpu_torch.train.gan_celeba import init_celeba_gan_state, make_celeba_gan_step
 from eadgan_tpu_torch.transforms import RPQXY, code_to_matrix
 from eadgan_tpu_torch.utils import MetricLogger, platform_device
+
+STATE_STEM = "celeba_train_state"
 
 
 def warp_batch(img: torch.Tensor, seed: int, code_dim: int) -> torch.Tensor:
@@ -73,7 +78,10 @@ def main(argv=None) -> None:
         seed=opt.seed,
     )
 
-    state = init_celeba_gan_state(config, device=device, seed=opt.seed)
+    state = init_celeba_gan_state(
+        config, device=device, seed=opt.seed, dtype=resolve_compute_dtype(opt)
+    )
+    state = maybe_resume(state, opt.resume, opt.ckpt_dir, STATE_STEM)
     step = make_celeba_gan_step(config)
     logger = MetricLogger(opt.jsonl or None, print_every=10)
     apply_g = generator_apply(lambda: state.g)
@@ -98,6 +106,7 @@ def main(argv=None) -> None:
                     "batches_done": batches_done,
                 },
             )
+            save_train_state(opt.ckpt_dir, STATE_STEM, batches_done, state, keep=opt.keep_states)
 
     run_epochs(
         n_epochs=config.n_epochs,

@@ -1,19 +1,23 @@
-"""Shared CLI plumbing: flag definitions.
+"""Shared CLI plumbing: flag definitions, the compute type and resume.
 
 PyTorch counterpart of part of ``eadgan_tpu/cli/common.py``.  The device
 is chosen by ``utils.device.platform_device`` (``EADGAN_PLATFORM=cpu``
 for the CPU, the CUDA card otherwise).  The flags whose machinery
-belongs to later slices of the port (``--resume``, ``--keep_states``,
-``--compute``, ``--chain``, ``--data_parallel``, ``--zero_opt``,
-``--watchdog``, ``--preempt_save``, ``--profile_dir``, ``--no_download``)
-are not defined, so argparse rejects them.
+belongs to later slices of the port (``--chain``, ``--data_parallel``,
+``--zero_opt``, ``--watchdog``, ``--preempt_save``, ``--profile_dir``,
+``--no_download``) are not defined, so argparse rejects them.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 
-__all__ = ["add_adam_args", "add_run_args"]
+import torch
+
+from eadgan_tpu_torch.train.checkpoint import restore_latest, restore_train_state
+
+__all__ = ["add_adam_args", "add_run_args", "maybe_resume", "resolve_compute_dtype"]
 
 
 def add_adam_args(parser: argparse.ArgumentParser, lr: float) -> None:
@@ -28,5 +32,50 @@ def add_run_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--out_dir", type=str, default="images", help="artifact directory")
     parser.add_argument("--ckpt_dir", type=str, default=".", help="checkpoint directory")
     parser.add_argument("--seed", type=int, default=0, help="PRNG seed")
-    parser.add_argument("--max_steps", type=int, default=0, help="stop after N batches (0 = full schedule)")
+    parser.add_argument(
+        "--max_steps", type=int, default=0,
+        help="stop after N batches, counted from the restored step (0 = full schedule)",
+    )
     parser.add_argument("--jsonl", type=str, default="", help="metrics JSONL path")
+    parser.add_argument(
+        "--resume", type=str, default="",
+        help="train-state file to resume from, or 'auto' for the newest loadable one in --ckpt_dir",
+    )
+    parser.add_argument(
+        "--keep_states", type=int, default=0,
+        help="keep only the N newest train-state files, pruning older ones after each save "
+        "(0 = keep all). Use >= 2 so --resume auto keeps a fallback when the newest file is "
+        "damaged. Reference-contract model files (checkpoint_*.tar) are never pruned",
+    )
+    parser.add_argument(
+        "--compute", choices=["bf16", "f32"], default="f32",
+        help="model compute type; parameters, BatchNorm statistics and spectral-norm state "
+        "stay float32 either way. The warp runs on the float32 real batch and accumulates "
+        "in float32 in both modes (the JAX package's EADGAN_WARP_PRECISION=fast selects "
+        "TPU matrix-unit passes and has no counterpart here)",
+    )
+
+
+def resolve_compute_dtype(opt):
+    """``--compute`` as a model ``dtype``: ``torch.bfloat16`` or ``None``
+    (float32).  The default is f32, the JAX package's default off the
+    TPU."""
+    return torch.bfloat16 if opt.compute == "bf16" else None
+
+
+def maybe_resume(state, resume: str, ckpt_dir: str, stem: str):
+    """Handle ``--resume``: a path restores that train-state file; the
+    literal ``auto`` restores the newest *loadable* ``<stem>_%d.ckpt`` in
+    ``ckpt_dir`` (no-op when there is none), skipping a damaged newest
+    file with a warning.  Restores into ``state`` in place; returns it."""
+    if not resume:
+        return state
+    if resume != "auto":
+        return restore_train_state(resume, state)
+    state, step = restore_latest(ckpt_dir, stem, state)
+    if step < 0:
+        print(f"--resume auto: no loadable {stem}_*.ckpt in {ckpt_dir}, starting fresh")
+    else:
+        print(f"--resume auto: restored {os.path.join(ckpt_dir, f'{stem}_{step}.ckpt')} "
+              f"at step {state.step}")
+    return state

@@ -4,6 +4,12 @@ PyTorch counterpart of ``eadgan_tpu/models/celeba.py``.  ``state_dict``
 keys follow the reference layout: ``conv_blocks.*`` for the generator
 and ``main.*`` for the discriminator (spectral-norm layers carry
 ``weight``, ``bias`` and flax's ``u``/``sigma``).
+
+``dtype`` is the compute type, as the JAX models' field: ``None`` is
+float32, ``torch.bfloat16`` runs every conv in bf16 (``models/layers.py``)
+while parameters, BatchNorm statistics and spectral-norm state stay
+float32.  Both models return float32: G casts its tanh output, D its head
+output, before the splits.
 """
 
 from __future__ import annotations
@@ -11,7 +17,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from eadgan_tpu_torch.models.layers import SNConv, TorchBatchNorm
+from eadgan_tpu_torch.models.layers import SNConv, TorchBatchNorm, TorchConv, TorchConvTranspose
 
 __all__ = ["CelebaGenerator", "CelebaDiscriminator"]
 
@@ -23,18 +29,20 @@ class CelebaGenerator(nn.Module):
     (B, channels, 64, 64)."""
 
     def __init__(self, latent_dim: int = 200, n_classes: int = 10, code_dim: int = 8,
-                 channels: int = 3):
+                 channels: int = 3, dtype=None):
         super().__init__()
         in_dim = latent_dim + n_classes + code_dim
-        layers = [nn.ConvTranspose2d(in_dim, 1024, 4, 1, 0)]
+        layers = [TorchConvTranspose(in_dim, 1024, 4, 1, 0, dtype=dtype)]
         for cin, cout in ((1024, 512), (512, 256), (256, 128)):
-            layers += [nn.ConvTranspose2d(cin, cout, 4, 2, 1), TorchBatchNorm(cout), nn.ReLU()]
-        layers += [nn.ConvTranspose2d(128, channels, 4, 2, 1), nn.Tanh()]
+            layers += [
+                TorchConvTranspose(cin, cout, 4, 2, 1, dtype=dtype), TorchBatchNorm(cout), nn.ReLU()
+            ]
+        layers += [TorchConvTranspose(128, channels, 4, 2, 1, dtype=dtype), nn.Tanh()]
         self.conv_blocks = nn.Sequential(*layers)
 
     def forward(self, noise, labels, code):
         x = torch.cat([noise, labels, code], dim=-1)[:, :, None, None]
-        return self.conv_blocks(x)
+        return self.conv_blocks(x).float()
 
 
 class CelebaDiscriminator(nn.Module):
@@ -43,14 +51,14 @@ class CelebaDiscriminator(nn.Module):
     Returns ``(cat, cont, validity)``: validity = sigmoid(out[:, 0]),
     cont = out[:, 1:code_dim+1], cat = softmax(out[:, code_dim+1:])."""
 
-    def __init__(self, n_classes: int = 10, code_dim: int = 8, channels: int = 3):
+    def __init__(self, n_classes: int = 10, code_dim: int = 8, channels: int = 3, dtype=None):
         super().__init__()
         self.n_classes = n_classes
         self.code_dim = code_dim
         layers = []
         for cin, cout in ((channels, 128), (128, 256), (256, 512), (512, 1024)):
-            layers += [SNConv(cin, cout, 4, 2, 1), nn.LeakyReLU(0.1)]
-        layers += [nn.Conv2d(1024, 1 + n_classes + code_dim, 4, 1, 0)]
+            layers += [SNConv(cin, cout, 4, 2, 1, dtype=dtype), nn.LeakyReLU(0.1)]
+        layers += [TorchConv(1024, 1 + n_classes + code_dim, 4, 1, 0, dtype=dtype)]
         self.main = nn.Sequential(*layers)
 
     def forward(self, img):

@@ -1,13 +1,24 @@
-"""Layers whose state follows the JAX package (flax), not torch's defaults.
+"""Layers whose state and compute types follow the JAX package (flax), not
+torch's defaults.
 
 PyTorch counterpart of ``eadgan_tpu/models/layers.py``.  Plain convs and
-transposed convs are torch's own ``nn.Conv2d`` / ``nn.ConvTranspose2d``
-with torch's default init, which the JAX package's ``ops/init.py`` only
-re-creates.  Two layers carry state that torch would handle differently:
+transposed convs (:class:`TorchConv`, :class:`TorchConvTranspose`) are
+torch's own ``nn.Conv2d`` / ``nn.ConvTranspose2d`` with torch's default
+init, which the JAX package's ``ops/init.py`` only re-creates, plus a
+compute ``dtype`` as flax's: ``None`` computes in the parameters' float32;
+``torch.bfloat16`` casts the input, the weight and the bias to bf16,
+convolves without the bias, adds the bias in bf16 and returns bf16, as
+flax's ``Conv(dtype=bf16)`` does (``promote_dtype``, then ``y += bias``).
+Parameters stay float32 either way.  Two layers carry state that torch
+would handle differently:
 
 * :class:`SNConv` does flax's spectral normalization (one power step
   from a stored ``u`` per forward, ``sigma`` stored beside it), not
-  ``torch.nn.utils.spectral_norm``'s ``weight_u``/``weight_v`` scheme;
+  ``torch.nn.utils.spectral_norm``'s ``weight_u``/``weight_v`` scheme.
+  The power step always runs in float32 on the float32 weight: the JAX
+  package's ``nn.SpectralNorm`` wraps the bf16 conv but takes no dtype
+  itself, so it normalizes the float32 kernel and the conv casts the
+  result;
 * :class:`TorchBatchNorm` normalizes with the biased batch variance
   (E[x^2] - E[x]^2, as flax computes it) and also updates the running
   variance with the biased value, where torch's would use the unbiased.
@@ -24,7 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["SNConv", "TorchBatchNorm", "no_stat_updates"]
+__all__ = ["TorchConv", "TorchConvTranspose", "SNConv", "TorchBatchNorm", "no_stat_updates"]
 
 _SN_EPS = 1e-12
 
@@ -33,7 +44,50 @@ def _l2n(x: torch.Tensor) -> torch.Tensor:
     return x * torch.rsqrt((x * x).sum() + _SN_EPS)
 
 
-class SNConv(nn.Conv2d):
+def _add_bias(y: torch.Tensor, bias, dtype) -> torch.Tensor:
+    """flax's bias step under a compute dtype: ``y`` (conv output in
+    ``dtype``) plus the bias rounded to ``dtype``, in ``dtype``."""
+    if bias is None:
+        return y
+    return y + bias.to(dtype)[None, :, None, None]
+
+
+class TorchConv(nn.Conv2d):
+    """``nn.Conv2d`` with a compute ``dtype`` (None: float32)."""
+
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1, padding=0, dtype=None):
+        super().__init__(in_channels, out_channels, kernel_size, stride, padding)
+        self.compute_dtype = dtype
+
+    def conv(self, x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt is None:
+            return self._conv_forward(x, weight, self.bias)
+        y = self._conv_forward(x.to(dt), weight.to(dt), None)
+        return _add_bias(y, self.bias, dt)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(x, self.weight)
+
+
+class TorchConvTranspose(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` with a compute ``dtype`` (None: float32)."""
+
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1, padding=0, dtype=None):
+        super().__init__(in_channels, out_channels, kernel_size, stride, padding)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt is None:
+            return super().forward(x)
+        y = F.conv_transpose2d(
+            x.to(dt), self.weight.to(dt), None, self.stride, self.padding
+        )
+        return _add_bias(y, self.bias, dt)
+
+
+class SNConv(TorchConv):
     """Spectral-normalized ``nn.Conv2d`` with flax ``SpectralNorm`` state.
 
     Each forward takes one power step over the kernel viewed as
@@ -46,8 +100,8 @@ class SNConv(nn.Conv2d):
     ``u``, and discarded.
     """
 
-    def __init__(self, in_channels, out_channels, kernel_size, stride=1, padding=0):
-        super().__init__(in_channels, out_channels, kernel_size, stride, padding)
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1, padding=0, dtype=None):
+        super().__init__(in_channels, out_channels, kernel_size, stride, padding, dtype)
         self.register_buffer("u", torch.randn(out_channels))
         self.register_buffer("sigma", torch.ones(()))
         self.update_stats = True
@@ -66,7 +120,7 @@ class SNConv(nn.Conv2d):
         return w / torch.where(sigma != 0, sigma, torch.ones_like(sigma))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self._conv_forward(x, self.normalized_weight(), self.bias)
+        return self.conv(x, self.normalized_weight())
 
 
 class TorchBatchNorm(nn.Module):

@@ -1,8 +1,9 @@
 """Build and load the package's CUDA kernels.
 
-At first use, one ``nvcc`` call compiles every ``eadgan_tpu_torch/csrc/*.cu``
-for Hopper (``sm_90a``) into one shared library with a plain C interface,
-under ``eadgan_tpu_torch/_build/``, which ``ctypes`` then loads.  The
+At first use, one ``nvcc`` per ``eadgan_tpu_torch/csrc/*.cu``, all started
+together, compiles each source for Hopper (``sm_90a``), and one more links
+the objects into one shared library with a plain C interface, under
+``eadgan_tpu_torch/_build/``, which ``ctypes`` then loads.  The
 library's name carries a hash of the sources and flags, so an edited
 source builds anew; a finished build is reused by later processes.
 Nothing is built when a module is imported: machines without ``nvcc``
@@ -27,16 +28,18 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _ptr = ctypes.c_void_p
 _int = ctypes.c_int
+_float = ctypes.c_float
 # every C entry point and its argument types (pointers and the stream as
 # c_void_p: ctypes would otherwise pass them as 32-bit ints)
 _SIGNATURES = {
     "eadgan_warp_affine_f32": (_ptr, _ptr, _ptr, _int, _int, _int, _int, _int, _int, _ptr),
     "eadgan_warp_affine_bf16": (_ptr, _ptr, _ptr, _int, _int, _int, _int, _int, _int, _ptr),
+    "eadgan_fused_conv_lrelu_bf16": (_ptr, _ptr, _ptr, _ptr, _int, _int, _int, _int, _float, _ptr),
 }
 
 
@@ -91,22 +94,45 @@ def find_nvcc() -> str:
     return found
 
 
+def _run(procs) -> str:
+    """Wait for every ``(cmd, Popen)``; raise on the first that failed,
+    else return their compiler output."""
+    logs = []
+    failed = None
+    for cmd, proc in procs:
+        _, err = proc.communicate()
+        logs.append(err)
+        if proc.returncode != 0 and failed is None:
+            failed = RuntimeError(f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{err}")
+    if failed is not None:
+        raise failed
+    return "".join(logs)
+
+
+def _popen(cmd):
+    return cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
 def _compile(sources, path: Path) -> str:
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_name(f"{path.name}.tmp.{os.getpid()}")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    pid = os.getpid()
+    tmp = path.with_name(f"{path.name}.tmp.{pid}")
+    # nvcc tells an input's kind by its suffix, so the objects end in .o
+    objects = [path.with_name(f"{path.stem}.{src.stem}.tmp{pid}.o") for src in sources]
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-            )
+        # one compiler per source, all at once; then one link
+        log = _run([
+            _popen([nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)])
+            for src, obj in zip(sources, objects)
+        ])
+        log += _run([_popen([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objects)])])
         os.replace(tmp, path)  # atomic: another process sees all or nothing
     finally:
-        if tmp.exists():
-            tmp.unlink()
-    return proc.stderr
+        for f in (tmp, *objects):
+            if f.exists():
+                f.unlink()
+    return log
 
 
 LIBRARY = _Library()

@@ -1,21 +1,45 @@
-"""Checkpoint writing (the reference-contract model files).
+"""Checkpoints: the reference-contract model files and the train state.
 
-PyTorch counterpart of the part of ``eadgan_tpu/train/checkpoint.py``
-that the CelebA trainer's ``checkpoint_%d.tar`` needs.  Writes are
-atomic: a temporary file in the same directory, fsynced, then
-``os.replace`` — a crash mid-write leaves the previous file intact.
-The train-state file and resume belong to a later slice.
+PyTorch counterpart of ``eadgan_tpu/train/checkpoint.py``, in the port's
+own ``torch.save`` format.  Two kinds of file:
+
+* **model files** under the reference's names (the CelebA trainer's
+  ``checkpoint_%d.tar``: both models plus epoch/batches_done);
+* **train-state files** (``<stem>_%d.ckpt``): both models' state_dicts
+  (parameters, BatchNorm statistics, spectral-norm ``u``/``sigma``), the
+  three optimizers' state_dicts (Adam moments and step counts), the step
+  and the ``torch.Generator`` state, so a run resumes bit for bit.
+
+Writes are atomic: a temporary file in the same directory, fsynced, then
+``os.replace``; a crash mid-write leaves the previous file intact.  On
+restore, :func:`restore_latest` skips a newest file that does not load
+(damaged on disk, or truncated by a writer older than the atomic one)
+and falls back to the next.  Reading the JAX package's train state is not
+done here.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Any, Dict
+import re
+import sys
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
 
-__all__ = ["save_checkpoint", "cpu_state_dict"]
+__all__ = [
+    "save_checkpoint",
+    "cpu_state_dict",
+    "save_train_state",
+    "restore_train_state",
+    "restore_latest",
+    "saved_steps",
+    "latest_step",
+    "prune_saved",
+]
+
+_STATE_KEYS = frozenset({"g", "d", "opt_g", "opt_d", "opt_info", "step", "rng"})
 
 
 def cpu_state_dict(model: nn.Module) -> Dict[str, torch.Tensor]:
@@ -37,3 +61,153 @@ def save_checkpoint(path: str, obj: Any) -> None:
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
+
+
+def _cpu(obj):
+    """Every tensor in a nested dict/list moved to the CPU."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu()
+    if isinstance(obj, dict):
+        return {k: _cpu(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_cpu(v) for v in obj)
+    return obj
+
+
+def _payload(state) -> Dict[str, Any]:
+    return {
+        "g": cpu_state_dict(state.g),
+        "d": cpu_state_dict(state.d),
+        "opt_g": _cpu(state.opt_g.state_dict()),
+        "opt_d": _cpu(state.opt_d.state_dict()),
+        "opt_info": _cpu(state.opt_info.state_dict()),
+        "step": int(state.step),
+        "rng": state.rng.get_state(),
+    }
+
+
+def _apply(state, payload: Dict[str, Any]):
+    """Load a train-state payload into ``state`` in place; returns it."""
+    state.g.load_state_dict(payload["g"])
+    state.d.load_state_dict(payload["d"])
+    state.opt_g.load_state_dict(payload["opt_g"])
+    state.opt_d.load_state_dict(payload["opt_d"])
+    state.opt_info.load_state_dict(payload["opt_info"])
+    state.rng.set_state(payload["rng"])
+    state.step = int(payload["step"])
+    return state
+
+
+def _load(path: str) -> Dict[str, Any]:
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    if not isinstance(payload, dict) or set(payload) != _STATE_KEYS:
+        raise ValueError(f"{path} is not a train-state file")
+    return payload
+
+
+def restore_train_state(path: str, state):
+    """Load the train-state file ``path`` into ``state`` (built by the
+    trainer's init for the same configuration) in place; returns it."""
+    return _apply(state, _load(path))
+
+
+def saved_steps(directory: str, prefix: str, suffix: str = ".ckpt") -> List[int]:
+    """All saved steps of ``<prefix>_%d<suffix>`` files, newest first."""
+    steps = []
+    if os.path.isdir(directory):
+        for name in os.listdir(directory):
+            if name.startswith(prefix + "_") and name.endswith(suffix):
+                middle = name[len(prefix) + 1 : -len(suffix)]
+                if middle.isdigit():
+                    steps.append(int(middle))
+    return sorted(steps, reverse=True)
+
+
+def latest_step(directory: str, prefix: str, suffix: str = ".ckpt") -> int:
+    """The newest saved step of ``<prefix>_%d<suffix>`` files; -1 if none."""
+    steps = saved_steps(directory, prefix, suffix)
+    return steps[0] if steps else -1
+
+
+def prune_saved(
+    directory: str,
+    prefix: str,
+    keep: int,
+    suffix: str = ".ckpt",
+    current_step: Optional[int] = None,
+) -> List[str]:
+    """Delete all but the ``keep`` newest ``<prefix>_%d<suffix>`` files;
+    ``keep < 1`` keeps every saved file.  Returns the removed paths.
+
+    ``current_step`` (what :func:`save_train_state` passes) anchors
+    "newest" to the step just written: after a fallback resume past a
+    damaged newest file, files above ``current_step`` belong to the
+    abandoned timeline and go first, and the retained set is the ``keep``
+    newest at or below it.  Temporary files of this prefix left by a
+    writer that no longer runs (``<prefix>_N<suffix>.tmp.<pid>``) are
+    swept in the same pass, whatever ``keep`` is.  Files that vanish
+    meanwhile are tolerated."""
+    steps = saved_steps(directory, prefix, suffix) if keep >= 1 else []
+    if current_step is not None:
+        retained = [s for s in steps if s <= current_step][:keep]
+    else:
+        retained = steps[:keep]
+    removed = []
+    for step in steps:
+        if step in retained:
+            continue
+        path = os.path.join(directory, f"{prefix}_{step}{suffix}")
+        try:
+            os.unlink(path)
+            removed.append(path)
+        except OSError:
+            pass
+    orphan = re.compile(re.escape(prefix) + r"_\d+" + re.escape(suffix) + r"\.tmp\.(\d+)$")
+    for name in os.listdir(directory) if os.path.isdir(directory) else []:
+        m = orphan.match(name)
+        if not m:
+            continue
+        try:
+            os.kill(int(m.group(1)), 0)
+            continue  # its writer still runs
+        except ProcessLookupError:
+            pass
+        except OSError:
+            continue  # e.g. EPERM: a live process has that pid
+        try:
+            os.unlink(os.path.join(directory, name))
+            removed.append(os.path.join(directory, name))
+        except OSError:
+            pass
+    return removed
+
+
+def save_train_state(ckpt_dir: str, stem: str, step: int, state, keep: int = 0) -> str:
+    """Save ``state`` as ``<stem>_<step>.ckpt`` atomically, then keep the
+    ``keep`` newest such files (``keep=0``: all).  The trainers'
+    ``--keep_states`` flag routes here."""
+    path = os.path.join(ckpt_dir, f"{stem}_{step}.ckpt")
+    save_checkpoint(path, _payload(state))
+    prune_saved(ckpt_dir, stem, keep, current_step=step)
+    return path
+
+
+def restore_latest(directory: str, prefix: str, state, suffix: str = ".ckpt") -> Tuple[Any, int]:
+    """Restore the newest *loadable* ``<prefix>_%d<suffix>`` file into
+    ``state``.  A file that fails to load is skipped with a warning and
+    the next-newest is tried.  Returns ``(state, step)``, with step -1
+    (and ``state`` untouched) when no file loads."""
+    for step in saved_steps(directory, prefix, suffix):
+        path = os.path.join(directory, f"{prefix}_{step}{suffix}")
+        try:
+            payload = _load(path)
+        except Exception as exc:  # noqa: BLE001 — any failure to read the file
+            print(
+                f"warning: checkpoint {path} failed to load ({exc!r}); "
+                "falling back to the previous checkpoint",
+                file=sys.stderr,
+                flush=True,
+            )
+            continue
+        return _apply(state, payload), step
+    return state, -1

@@ -1,12 +1,19 @@
 """Training engine: the epoch/batch loop a trainer runs its step under.
 
-PyTorch counterpart of the single-device, per-step path of
-``eadgan_tpu/train/engine.py`` (``_run_epochs_inner``).  It draws the same
-epoch permutations from ``np.random.default_rng(seed)`` and the same
-per-batch flip masks from ``np.random.default_rng([seed, 0x464C4950])``,
-so both packages feed their steps the same batches.  Batches are
-gathered, normalized and flipped in numpy on the host, then copied to
-the device.
+PyTorch counterpart of the single-device path of
+``eadgan_tpu/train/engine.py``.  It draws the same epoch permutations from
+``np.random.default_rng(seed)`` and the same per-batch flip masks from
+``np.random.default_rng([seed, 0x464C4950])``, one draw per batch in
+batch order, so both packages feed their steps the same batches.
+Batches are gathered, normalized and flipped in numpy on the host, then
+copied to the device.
+
+A run resumed at a step inside an epoch starts from fresh generators, as
+the JAX engines do: the resumed epoch draws a fresh permutation and runs
+only its remaining ``n_batches - start_step % n_batches`` batches, taken
+from the start of that permutation (the rows the JAX CLI's default
+chained engine gives those steps, ``plan_windows``), and the run ends at
+the planned total, ``n_epochs * n_batches``.
 """
 
 from __future__ import annotations
@@ -29,19 +36,22 @@ def epoch_batches(
     start_step: int = 0, scale: float = 1.0, shift: float = 0.0,
     random_flip: bool = False,
 ):
-    """Yield ``(epoch, host_batch)`` in training order: for each epoch a
-    permutation of the uint8 ``data``, cut into full batches (the ragged
-    tail is dropped), each gathered as float32 ``x * scale + shift`` and,
-    with ``random_flip``, mirrored along the width where a fresh draw is
-    below 0.5."""
+    """Yield ``(epoch, host_batch)`` in training order from step
+    ``start_step`` on: for each epoch a permutation of the uint8 ``data``,
+    cut into full batches (the ragged tail is dropped), each gathered as
+    float32 ``x * scale + shift`` and, with ``random_flip``, mirrored
+    along the width where a fresh draw is below 0.5.  The epoch holding
+    ``start_step`` yields only its remaining batches, from the start of
+    its permutation."""
     host_rng = np.random.default_rng(seed)
     flip_rng = np.random.default_rng([seed, _FLIP_STREAM])
     n = data.shape[0]
     n_batches = n // batch_size
-    end = n - (n % batch_size)
-    for epoch in range(start_step // max(n_batches, 1), n_epochs):
+    first_epoch, done = divmod(start_step, max(n_batches, 1))
+    for epoch in range(first_epoch, n_epochs):
         perm = host_rng.permutation(n)
-        for s in range(0, end, batch_size):
+        skip = done if epoch == first_epoch else 0
+        for s in range(0, (n_batches - skip) * batch_size, batch_size):
             idx = perm[s : s + batch_size]
             out = data[idx].astype(np.float32) * scale + shift
             if random_flip:

@@ -27,19 +27,24 @@ from eadgan_tpu_torch.utils.device import resolve_device
 __all__ = ["init_celeba_gan_state", "make_celeba_gan_step"]
 
 
-def init_celeba_gan_state(config: CelebaConfig, device=None, seed: int = 0) -> GanTrainState:
+def init_celeba_gan_state(
+    config: CelebaConfig, device=None, seed: int = 0, dtype=None
+) -> GanTrainState:
     """Fresh models (torch default init, drawn from ``seed`` without
     touching the global generator) and optimizers on ``device`` (the
-    CUDA card when None)."""
+    CUDA card when None).  ``dtype`` is the models' compute type (None:
+    float32; ``torch.bfloat16``); parameters are float32 either way, and
+    the warp runs on the float32 real batch, as in the JAX package."""
     device = resolve_device(device)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         g = CelebaGenerator(
             latent_dim=config.latent_dim, n_classes=config.n_classes,
-            code_dim=config.code_dim, channels=config.channels,
+            code_dim=config.code_dim, channels=config.channels, dtype=dtype,
         )
         d = CelebaDiscriminator(
             n_classes=config.n_classes, code_dim=config.code_dim, channels=config.channels,
+            dtype=dtype,
         )
     g.to(device).train()
     d.to(device).train()

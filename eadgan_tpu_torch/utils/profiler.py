@@ -1,11 +1,12 @@
 """Device-time breakdown of the CelebA train step on the card.
 
-``python -m eadgan_tpu_torch.utils.profiler [--tf32] [--out FILE]`` runs
-the f32 step at batch 128 (random weights from seed 0, random images)
-under ``torch.profiler`` for 5 steps after a warm-up, and reports the step time by CUDA events, the device's
-busy share of the profiled window (summed kernel time over wall time) and
-the kernels that take the most device time.  ``--tf32`` allows TF32 in
-convolutions and matrix products (off by default, as in
+``python -m eadgan_tpu_torch.utils.profiler [--compute bf16] [--tf32]
+[--out FILE]`` runs the step at batch 128 (random weights from seed 0,
+random images; f32 unless ``--compute bf16``) under ``torch.profiler``
+for 5 steps after a warm-up, and reports the step time by CUDA events,
+the device's busy share of the profiled window (summed kernel time over
+wall time) and the kernels that take the most device time.  ``--tf32``
+allows TF32 in convolutions and matrix products (off by default, as in
 ``chip_smoke.py``).  Needs a CUDA card.
 """
 
@@ -26,12 +27,13 @@ from eadgan_tpu_torch.train.gan_celeba import init_celeba_gan_state, make_celeba
 __all__ = ["profile_celeba_step"]
 
 
-def profile_celeba_step(batch_size: int = 128, steps: int = 5, warmup: int = 5):
-    """Returns (summary dict, profiler table text)."""
+def profile_celeba_step(batch_size: int = 128, steps: int = 5, warmup: int = 5, dtype=None):
+    """Returns (summary dict, profiler table text); ``dtype`` is the
+    models' compute type (None: float32)."""
     from torch.profiler import ProfilerActivity, profile
 
     config = CelebaConfig(batch_size=batch_size)
-    state = init_celeba_gan_state(config, device="cuda", seed=0)
+    state = init_celeba_gan_state(config, device="cuda", seed=0, dtype=dtype)
     step = make_celeba_gan_step(config)
     gen = torch.Generator(device="cuda").manual_seed(1)
     imgs = torch.rand((batch_size, 64, 64, 3), generator=gen, device="cuda") * 2 - 1
@@ -69,6 +71,7 @@ def profile_celeba_step(batch_size: int = 128, steps: int = 5, warmup: int = 5):
     summary = {
         "device": torch.cuda.get_device_name(0),
         "batch_size": batch_size,
+        "compute": "bf16" if dtype == torch.bfloat16 else "f32",
         "tf32": torch.backends.cudnn.allow_tf32,
         "step_ms_cuda_events": step_ms,
         "profiled_steps": steps,
@@ -87,6 +90,7 @@ def profile_celeba_step(batch_size: int = 128, steps: int = 5, warmup: int = 5):
 
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser()
+    parser.add_argument("--compute", choices=["bf16", "f32"], default="f32", help="model compute type")
     parser.add_argument("--tf32", action="store_true", help="allow TF32 in convs and matmuls")
     parser.add_argument("--out", type=str, default="", help="also write the profiler table here")
     opt = parser.parse_args(argv)
@@ -94,7 +98,7 @@ def main(argv=None) -> None:
         raise SystemExit("no CUDA device: the step profile needs the card")
     torch.backends.cudnn.allow_tf32 = opt.tf32
     torch.backends.cuda.matmul.allow_tf32 = opt.tf32
-    summary, table = profile_celeba_step()
+    summary, table = profile_celeba_step(dtype=torch.bfloat16 if opt.compute == "bf16" else None)
     if opt.out:
         os.makedirs(os.path.dirname(opt.out) or ".", exist_ok=True)
         with open(opt.out, "w") as f:

@@ -4,17 +4,31 @@ Marked ``cuda``: on a machine without a CUDA card these tests skip (the
 decision is taken inside the fixture, never at import).  On the card:
 ``python -m pytest -m cuda tests/test_torch_port_cuda.py``.
 
-Tolerances: float32 2e-5 (nvcc contracts multiply-adds into FMA, so a
-coordinate can land an ulp apart and pick the neighbouring texel's
-weights; bilinear output is continuous, so the error stays ~1e-6), bf16
-1e-2 (one bf16 rounding of the output, against the plain version on the
-same bf16 input).
+Tolerances: the warp in float32 2e-5 (nvcc contracts multiply-adds into
+FMA, so a coordinate can land an ulp apart and pick the neighbouring
+texel's weights; bilinear output is continuous, so the error stays
+~1e-6), in bf16 1e-2 (one bf16 rounding of the output, against the plain
+version on the same bf16 input).  The fused conv: 2e-2 of max(1, max
+|ref|), the JAX tool's bar, and per element two bf16 steps of |ref| plus
+1e-3 of max |ref| (``ops.fused_conv.mismatch``: both accumulate bf16
+products in float32 in other orders and round once to bf16, so one step
+apart at most).  Its cases run with the probe's small bias and with a
+bias as large as the conv output, which a kernel that drops the bias or
+reads another channel's cannot pass.
 """
 
 import pytest
 import torch
 
-from eadgan_tpu_torch.ops import stn_cuda, warp_affine, warp_affine_plain
+from eadgan_tpu_torch.ops import (
+    fused_conv_cuda,
+    fused_conv_lrelu,
+    fused_conv_lrelu_plain,
+    stn_cuda,
+    warp_affine,
+    warp_affine_plain,
+)
+from eadgan_tpu_torch.ops.fused_conv import mismatch
 from eadgan_tpu_torch.transforms import RP, RPQMNXY, RPQXY, code_to_matrix
 
 pytestmark = pytest.mark.cuda
@@ -61,3 +75,46 @@ def test_warp_kernel_rejects_non_contiguous(cuda):
     img = torch.rand(2, 3, 16, 16, device=cuda).permute(0, 2, 3, 1)
     with pytest.raises(ValueError, match="contiguous"):
         stn_cuda.warp_affine_cuda(img, torch.eye(3, device=cuda).expand(2, 3, 3))
+
+
+CONV_CASES = [
+    (2, 8, 16, 32),
+    (2, 8, 16, 40),  # Cout no multiple of the 128-channel tile
+    (2, 32, 128, 256),
+    (128, 32, 128, 256),  # the CelebA discriminator's layer 2 at batch 128
+    (3, 6, 24, 136),
+]
+
+
+def _conv_inputs(device, batch, hw, cin, cout, bias=0.01):
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(batch, hw, hw, cin, generator=gen)
+    w = 0.05 * torch.randn(4, 4, cin, cout, generator=gen)
+    b = bias * torch.randn(cout, generator=gen)
+    return [t.to(device, torch.bfloat16) for t in (x, w, b)]
+
+
+@pytest.mark.parametrize("bias", [0.01, 1.0])
+@pytest.mark.parametrize("batch,hw,cin,cout", CONV_CASES)
+def test_fused_conv_kernel_matches_plain(cuda, batch, hw, cin, cout, bias):
+    x, w, b = _conv_inputs(cuda, batch, hw, cin, cout, bias)
+    before = fused_conv_cuda.launch_count
+    got = fused_conv_lrelu(x, w, b)
+    assert fused_conv_cuda.launch_count == before + 1
+    ref = fused_conv_lrelu_plain(x, w, b)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+    diff = mismatch(got, ref)
+    assert diff["rel"] < 2e-2 and diff["elem"] <= 1.0, diff
+
+
+def test_fused_conv_kernel_rejects(cuda):
+    x, w, b = _conv_inputs(cuda, 2, 8, 16, 32)
+    with pytest.raises(TypeError, match="bfloat16"):
+        fused_conv_cuda.fused_conv_lrelu_cuda(x.float(), w, b)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_conv_cuda.fused_conv_lrelu_cuda(x.transpose(1, 2), w, b)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        fused_conv_cuda.fused_conv_lrelu_cuda(x[..., :12].contiguous(), w[:, :, :12].contiguous(), b)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        fused_conv_cuda.fused_conv_lrelu_cuda(x, w.clone().requires_grad_(True), b)
