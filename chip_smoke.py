@@ -10,11 +10,13 @@ a non-zero exit on the first that fails:
    switched off, and the build of every kernel from ``csrc/`` (one nvcc
    per source, all at once);
 2. each kernel against its plain PyTorch version on the card: the warp
-   over the cases of ``tests/test_stn_pallas.py`` and the CelebA shape,
-   f32 and bf16; the fused conv + LeakyReLU in bf16 over the test shapes,
-   the CelebA discriminator's layer 2 at batch 128 and a Cout that is no
-   multiple of the tile, with the probe's small bias and with one as
-   large as the conv output (one JSON line per case);
+   over the cases of ``tests/test_stn_pallas.py``, the CelebA shape and
+   the edges of its 4-pixel groups (a row end no multiple of 4, C = 2, 4,
+   5), f32 and bf16; the fused conv + LeakyReLU in bf16 over the test
+   shapes, the CelebA discriminator's layer 2 at batch 128 and the edges
+   of its tiles (Cout and Cin no multiple of the tile, Ho no multiple of
+   8 or 16, one image, several waves), with the probe's small bias and
+   with one as large as the conv output (one JSON line per case);
 3. the CelebA train step on the CPU and on the card from the same
    weights and draws, three steps at the low-lr config, in f32 and in
    bf16;
@@ -28,7 +30,8 @@ a non-zero exit on the first that fails:
    record gives the fused conv's kernel and library times;
 5. timing with CUDA events: the B=128 step in f32 and in bf16, the warp
    beside its bound, its plain version and the library call that computes
-   the same function, and the fused conv's plain version and bound.
+   the same function, and the fused conv's plain version, bound and host
+   cost per call.
 
 Its last lines are the ``{"kernels": [...]}`` record, the ``nvidia-smi``
 name/power-limit line, and ``{"ok": true, "device": {...}}``.
@@ -125,24 +128,41 @@ WARP_CASES = [
     ("c1", (4, 64, 64, 1), "RP", 1.0, "zeros", "bfloat16"),
     ("extreme_x3", (2, 16, 16, 1), "RPQMNXY", 3.0, "border", "bfloat16"),
     ("celeba_main", (128, 64, 64, 3), "RPQXY", 1.0, "border", "bfloat16"),
+    # edges of the 4-pixel groups: a row end that is no multiple of 4 (scalar
+    # tail), C = 2 and 4 (8- and 16-byte packed stores), C = 5 (run-time C)
+    *(
+        (name, shape, "RP", 1.0, pad, dtype)
+        for name, shape in (("w23", (2, 17, 23, 3)), ("c2", (4, 32, 32, 2)),
+                            ("c4", (4, 32, 32, 4)), ("c5", (2, 16, 16, 5)))
+        for pad in ("border", "zeros")
+        for dtype in ("float32", "bfloat16")
+    ),
 ]
 
 # (batch, hw, cin, cout) of the fused conv: the CPU tests' shapes, the
 # CelebA discriminator's layer 2 at batch 128 (the probe's default, the
-# main path's shape) and Couts that are no multiple of the 128 tile; each
-# with the probe's bias, 0.01 * N(0, 1), and with N(0, 1), as large as the
-# conv output, which no kernel that drops the bias or reads another
-# channel's can match
+# main path's shape), Couts that are no multiple of the N tile, Cins that
+# are no multiple of the kernel's 64-channel K step, Ho no multiple of its
+# 8 x 16 pixel tile, a single image, and 512 tiles (four waves of the
+# persistent grid); each with the probe's bias, 0.01 * N(0, 1), and with
+# N(0, 1), as large as the conv output, which no kernel that drops the
+# bias or reads another channel's can match
 CONV_CASES = [
     ("small", (2, 8, 16, 32)),
     ("cout40", (2, 8, 16, 40)),
     ("full_width_b2", (2, 32, 128, 256)),
     ("celeba_d2_main", (128, 32, 128, 256)),
     ("cout136", (3, 6, 24, 136)),
+    ("cin24_cout40", (2, 8, 24, 40)),
+    ("cin72_cout264", (2, 10, 72, 264)),
+    ("ho17", (1, 34, 64, 128)),
+    ("single_image", (1, 32, 128, 256)),
+    ("multi_wave", (256, 32, 128, 256)),
 ]
 CONV_BIAS = (0.01, 1.0)
 CONV_MAIN = (128, 32, 128, 256)
 CONV_TOL_REL = 2e-2  # of max(1, max |ref|): the JAX tool's bar
+CONV_TOL_ELEM_MAIN = 0.5  # at the main shape: one bf16 step of the two the bar allows
 
 
 def conv_inputs(torch, shape, bias=0.01, seed=0):
@@ -216,6 +236,8 @@ def phase_kernel_vs_plain(torch):
                   "dtype": "bfloat16", **diff, "tol_rel": CONV_TOL_REL, "tol_elem": 1.0})
             check(math.isfinite(diff["rel"]) and diff["rel"] < CONV_TOL_REL and diff["elem"] <= 1.0,
                   f"fused conv vs plain {name} bias {bias}: {diff}")
+            if shape == CONV_MAIN:
+                check(diff["elem"] <= CONV_TOL_ELEM_MAIN, f"fused conv at the main shape: {diff}")
             if shape == CONV_MAIN and bias == 0.01:
                 errs["fused_conv_lrelu"] = diff["max_abs_err"]
     # forward-only: an input that needs a gradient is refused, not detached
@@ -383,6 +405,7 @@ def phase_probe(torch):
     check(record["shape"] == [batch, hw, hw, cin, cout], f"probe shape {record['shape']}")
     check(record["timing"] == "cuda_events" and "cuda_fused" in record, f"probe record {record}")
     check(record["rel"] < CONV_TOL_REL, f"probe: kernel vs library rel {record['rel']}")
+    check(record["plain_elem"] <= CONV_TOL_ELEM_MAIN, f"probe: kernel vs plain {record['plain_elem']}")
     check(launches >= 1, f"fused conv launched {launches} times by its probe")
     emit({"probe": "eadgan_tpu_torch.tools.fused_conv_probe", "fused_conv_launches": launches,
           "record": record})
@@ -435,7 +458,7 @@ def time_warp(torch, n, h, w, c, cycles, gen):
     from eadgan_tpu_torch.ops.stn import warp_affine_plain
     from eadgan_tpu_torch.ops.stn_cuda import warp_affine_cuda
     from eadgan_tpu_torch.transforms import RPQXY, code_to_matrix
-    from eadgan_tpu_torch.utils.timing import device_ms, host_ms_per_call
+    from eadgan_tpu_torch.utils.timing import device_ms, host_enqueue_ms, host_ms_per_call
 
     img = torch.rand((n, h, w, c), generator=gen, device="cuda") * 2 - 1
     code = torch.rand((n, 8), generator=gen, device="cuda") * 2 - 1
@@ -463,6 +486,7 @@ def time_warp(torch, n, h, w, c, cycles, gen):
         "bound_by": bound_by,
         "library_ms": device_ms(library, 100, cycles),
         "wrapper_call_ms_host_clock": host_ms_per_call(lambda: warp_affine_cuda(img, matrix), 200),
+        "wrapper_enqueue_ms_host_clock": host_enqueue_ms(lambda: warp_affine_cuda(img, matrix), 200),
         "library_vs_kernel_max_abs_err": lib_err,
     }
 
@@ -471,8 +495,10 @@ def phase_timing(torch, errs, probe):
     """Kernel records for the ``kernels`` line; the fused conv's kernel
     and library times are those its probe measured on the main path."""
     from eadgan_tpu_torch.ops.fused_conv import fused_conv_lrelu_plain
+    from eadgan_tpu_torch.ops.fused_conv_cuda import fused_conv_lrelu_cuda
     from eadgan_tpu_torch.tools.fused_conv_probe import counts
-    from eadgan_tpu_torch.utils.timing import device_ms, sleep_cycles_per_ms
+    from eadgan_tpu_torch.utils.timing import (device_ms, host_enqueue_ms, host_ms_per_call,
+                                               sleep_cycles_per_ms)
 
     # the train step at B=128, f32 (TF32 off) and bf16
     time_step(torch, "f32", None)
@@ -494,11 +520,14 @@ def phase_timing(torch, errs, probe):
         "launches": None,
         "max_abs_err": errs["warp_affine"],
         **{k: warp[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                                "wrapper_call_ms_host_clock")},
+                                "wrapper_call_ms_host_clock", "wrapper_enqueue_ms_host_clock")},
         **{f"c1_{k}": warp_c1[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "library_ms")},
     }
 
-    # the fused conv at its main path's shape: its plain version and bound
+    # the fused conv at its main path's shape: its plain version, bound and
+    # what a call costs on the host: back to back ending in a synchronize
+    # (device-bound here), and enqueue only (the wrapper's checks, three
+    # tensor maps encoded, the ctypes call)
     x, w, b = conv_inputs(torch, CONV_MAIN)
     nbytes, flops = counts(*CONV_MAIN)
     bound_ms, bound_by = bound(nbytes, flops, BF16_TENSOR_FLOPS_PER_S)
@@ -516,8 +545,11 @@ def phase_timing(torch, errs, probe):
         "bound_by": bound_by,
         "library_ms": probe["library_conv_bias_lrelu"],
         "library_conv_only_ms": probe["library_conv_only"],
+        "wrapper_call_ms_host_clock": host_ms_per_call(lambda: fused_conv_lrelu_cuda(x, w, b), 300),
+        "wrapper_enqueue_ms_host_clock": host_enqueue_ms(lambda: fused_conv_lrelu_cuda(x, w, b), 300),
         "tflop_per_s": flops / probe["cuda_fused"] / 1e9,
         "library_vs_kernel_rel": probe["rel"],
+        "plain_elem": probe["plain_elem"],
     }
     emit({"fused_conv_timing": conv_kernel})
     return [warp_kernel, conv_kernel]

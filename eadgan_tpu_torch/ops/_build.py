@@ -21,7 +21,7 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["load_library", "find_nvcc", "NVCC_FLAGS"]
+__all__ = ["load_library", "build", "find_nvcc", "NVCC_FLAGS"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -60,22 +60,32 @@ class _Library:
             return self.lib
 
     def _load(self) -> None:
-        sources = sorted(CSRC.glob("*.cu"))
-        digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-        for src in sources:
-            digest.update(src.name.encode())
-            digest.update(src.read_bytes())
-        path = BUILD_DIR / f"libeadgan_kernels_{digest.hexdigest()[:16]}.so"
-        if not path.exists():
-            t0 = time.perf_counter()
-            self.build_log = _compile(sources, path)
-            self.build_seconds = time.perf_counter() - t0
+        path, self.build_log, self.build_seconds = build(
+            sorted(CSRC.glob("*.cu")), "libeadgan_kernels"
+        )
         lib = ctypes.CDLL(str(path))
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
         self.lib, self.path = lib, path
+
+
+def build(sources, stem: str, hashed=()):
+    """Build ``sources`` into ``_build/{stem}_{hash}.so`` unless that exists;
+    the hash covers the flags, the sources and the ``hashed`` files they
+    include.  Returns (path, compiler output, build seconds or None when an
+    earlier build was reused)."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in [*sources, *hashed]:
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    path = BUILD_DIR / f"{stem}_{digest.hexdigest()[:16]}.so"
+    if path.exists():
+        return path, "", None
+    t0 = time.perf_counter()
+    log = _compile(sources, path)
+    return path, log, time.perf_counter() - t0
 
 
 def find_nvcc() -> str:

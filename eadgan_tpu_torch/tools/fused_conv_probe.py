@@ -10,6 +10,9 @@ bf16 ``x`` (B, H, H, Cin), ``w`` 0.05 * N(0, 1) (4, 4, Cin, Cout) and
 1. correctness first: the kernel (``ops.fused_conv_lrelu``) against the
    library convolution plus its epilogue, failing unless the largest
    difference is below 2e-2 of max(1, max |ref|), the JAX tool's bar;
+   then against the plain version (``ops.fused_conv_lrelu_plain``), per
+   element (``ops.fused_conv.mismatch``), failing on a ratio above 1,
+   which a wrong bias or a misplaced tile cannot pass;
 2. times: ``library_conv_only`` (cuDNN's bf16 ``F.conv2d`` on
    channels_last tensors, in place of ``xla_conv_only``),
    ``library_conv_bias_lrelu`` (the same conv with its bias, then
@@ -39,7 +42,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from eadgan_tpu_torch.ops import fused_conv_lrelu
+from eadgan_tpu_torch.ops import fused_conv_lrelu, fused_conv_lrelu_plain
+from eadgan_tpu_torch.ops.fused_conv import mismatch
 from eadgan_tpu_torch.utils import platform_device
 from eadgan_tpu_torch.utils.timing import device_ms, host_ms_per_call, sleep_cycles_per_ms
 
@@ -110,6 +114,15 @@ def main(argv=None) -> dict:
     print(json.dumps({"max_abs_err": err, "rel": rel}), flush=True)
     if got.dtype != torch.bfloat16 or tuple(got.shape) != tuple(ref.shape) or not rel < 2e-2:
         raise RuntimeError(f"fused conv does not match the library conv: rel {rel}")
+    # the library rounds before its epilogue; the plain version rounds once,
+    # as the kernel does, so it holds the kernel per element
+    diff = mismatch(got, fused_conv_lrelu_plain(x, w, b, SLOPE))
+    results["plain_max_abs_err"] = diff["max_abs_err"]
+    results["plain_elem"] = diff["elem"]
+    print(json.dumps({"plain_max_abs_err": diff["max_abs_err"], "plain_elem": diff["elem"]}),
+          flush=True)
+    if not diff["elem"] <= 1.0:
+        raise RuntimeError(f"fused conv does not match its plain version per element: {diff}")
 
     if on_card:
         cycles = sleep_cycles_per_ms()

@@ -6,9 +6,10 @@ run of back-to-back calls is bracketed by two CUDA events instead; the
 events are queued behind a spin kernel long enough for the host to
 enqueue every call, so they bracket device work only, not the host's
 launch overhead.  :func:`host_ms_per_call` gives the other number, what a
-caller pays per call on the host clock.  Every function needs a CUDA
-card, except :func:`host_ms_per_call` with ``cuda=False``, which times
-work on the CPU.
+caller pays per call on the host clock, and :func:`host_enqueue_ms` the
+host's own cost of a call, without waiting for the device.  Every
+function needs a CUDA card, except :func:`host_ms_per_call` with
+``cuda=False``, which times work on the CPU.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from typing import Callable
 
 import torch
 
-__all__ = ["sleep_cycles_per_ms", "device_ms", "host_ms_per_call"]
+__all__ = ["sleep_cycles_per_ms", "device_ms", "host_ms_per_call", "host_enqueue_ms"]
 
 
 def sleep_cycles_per_ms() -> float:
@@ -72,3 +73,17 @@ def host_ms_per_call(fn: Callable[[], object], iters: int, cuda: bool = True) ->
         fn()
     sync()
     return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def host_enqueue_ms(fn: Callable[[], object], iters: int) -> float:
+    """Host clock per call of back-to-back ``fn()`` calls, stopped before
+    the device is waited for: the host's own cost of a call (checks,
+    arguments, launch), which the device hides while it is the slower."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / iters
+    torch.cuda.synchronize()
+    return ms

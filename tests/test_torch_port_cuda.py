@@ -2,7 +2,9 @@
 
 Marked ``cuda``: on a machine without a CUDA card these tests skip (the
 decision is taken inside the fixture, never at import).  On the card:
-``python -m pytest -m cuda tests/test_torch_port_cuda.py``.
+``python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py``
+(``--noconftest``: ``tests/conftest.py`` imports JAX, which the card's
+machine need not have).
 
 Tolerances: the warp in float32 2e-5 (nvcc contracts multiply-adds into
 FMA, so a coordinate can land an ulp apart and pick the neighbouring
@@ -51,6 +53,10 @@ CASES = [
     ((2, 16, 16, 1), RPQMNXY, 3.0),
     ((6, 64, 64, 1), RP, 1.0),
     ((128, 64, 64, 3), RPQXY, 1.0),
+    ((2, 17, 23, 3), RP, 1.0),  # a row end that is no multiple of the 4-pixel group
+    ((4, 32, 32, 2), RP, 1.0),  # 8-byte (bf16) and 32-byte (f32) groups
+    ((4, 32, 32, 4), RP, 1.0),
+    ((2, 16, 16, 5), RP, 1.0),  # C above 4: the run-time channel loop
 ]
 
 
@@ -83,6 +89,11 @@ CONV_CASES = [
     (2, 32, 128, 256),
     (128, 32, 128, 256),  # the CelebA discriminator's layer 2 at batch 128
     (3, 6, 24, 136),
+    (2, 8, 24, 40),  # Cin no multiple of the 64-channel K step
+    (2, 10, 72, 264),  # ... and Cout above 256: two N tiles
+    (1, 34, 64, 128),  # Ho = 17: no multiple of the 8 x 16 pixel tile
+    (1, 32, 128, 256),  # a single image
+    (256, 32, 128, 256),  # 512 tiles: four waves of the persistent grid
 ]
 
 
@@ -106,6 +117,14 @@ def test_fused_conv_kernel_matches_plain(cuda, batch, hw, cin, cout, bias):
     assert got.dtype == torch.bfloat16 and got.shape == ref.shape
     diff = mismatch(got, ref)
     assert diff["rel"] < 2e-2 and diff["elem"] <= 1.0, diff
+
+
+def test_tma_wgmma_bringup_steps_pass(cuda):
+    """The step-wise bring-up checks of the conv kernel's blocks: a plain
+    GEMM through its descriptors, its A box, then the kernel itself."""
+    from eadgan_tpu_torch.tools import tma_wgmma_check
+
+    assert tma_wgmma_check.main([]) == 0
 
 
 def test_fused_conv_kernel_rejects(cuda):

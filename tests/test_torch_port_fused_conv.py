@@ -131,12 +131,15 @@ def test_probe_runs_on_cpu(tmp_path):
     record = json.loads(proc.stdout.strip().splitlines()[-1])
     assert record == json.loads(out.read_text())
     assert set(record) == {
-        "shape", "device", "timing", "max_abs_err", "rel", "library_conv_only",
+        "shape", "device", "timing", "max_abs_err", "rel", "plain_max_abs_err", "plain_elem",
+        "library_conv_only",
         "library_conv_bias_lrelu", "plain_fused", "elementwise_fusion_delta_ms",
         "bytes_gb", "gflop",
     }
     assert record["device"] == "cpu" and record["timing"] == "host_clock"
     assert record["shape"] == [2, 8, 8, 16, 32] and record["rel"] < 2e-2
+    # on the CPU the fused call is the plain version itself
+    assert record["plain_max_abs_err"] == 0.0 and record["plain_elem"] == 0.0
     # 2 * M * N * K and each tensor once, in bf16
     assert record["gflop"] == pytest.approx(2 * 2 * 16 * 32 * 256 / 1e9)
     assert record["bytes_gb"] == pytest.approx(2 * (2 * 64 * 16 + 16 * 16 * 32 + 32 + 2 * 16 * 32) / 1e9)
