@@ -10,28 +10,40 @@ a non-zero exit on the first that fails:
    switched off, and the build of every kernel from ``csrc/`` (one nvcc
    per source, all at once);
 2. each kernel against its plain PyTorch version on the card: the warp
-   over the cases of ``tests/test_stn_pallas.py``, the CelebA shape and
-   the edges of its 4-pixel groups (a row end no multiple of 4, C = 2, 4,
-   5), f32 and bf16; the fused conv + LeakyReLU in bf16 over the test
-   shapes, the CelebA discriminator's layer 2 at batch 128 and the edges
-   of its tiles (Cout and Cin no multiple of the tile, Ho no multiple of
-   8 or 16, one image, several waves), with the probe's small bias and
-   with one as large as the conv output (one JSON line per case);
-3. the CelebA train step on the CPU and on the card from the same
-   weights and draws, three steps at the low-lr config, in f32 and in
-   bf16;
+   over the cases of ``tests/test_stn_pallas.py``, the CelebA shape, the
+   edges of its 4-pixel groups (a row end no multiple of 4, C = 2, 4, 5)
+   and the dSprites trainers' shapes ((128, 64, 64, 1) binary sprites and
+   (128, 64, 64, 3) colorized ones, under the aligner's inverse matrices
+   on codes in [-3, 3], some rows wholly outside the image, and under rp
+   matrices), in both paddings, f32 and bf16; the fused conv + LeakyReLU
+   in bf16 over the test shapes, the CelebA discriminator's layer 2 at
+   batch 128 and the edges of its tiles (Cout and Cin no multiple of the
+   tile, Ho no multiple of 8 or 16, one image, several waves), with the
+   probe's small bias and with one as large as the conv output (one JSON
+   line per case);
+3. train steps on the CPU and on the card from the same weights and
+   draws, three steps at batch 4: CelebA at the low-lr config in f32 and
+   bf16; the pxy step gray and colored in f32; the rp step gray and
+   colored in f32 and gray in bf16;
 4. the main paths, each with its kernel's launch count set to 0 just
-   before and read just after: the trainer, ``python -m
-   eadgan_tpu_torch.cli.celeba --batch_size 128 --max_steps 20`` in f32
-   on synthetic data, saving a train state at step 0 (mid-epoch), then
-   ``--resume auto --compute bf16`` continuing it to the planned total;
-   and the fused conv's probe, ``python -m
+   before and read just after, and the warp's count held exactly: the
+   CelebA trainer, ``python -m eadgan_tpu_torch.cli.celeba --batch_size
+   128 --max_steps 20`` in f32 on synthetic data, saving a train state at
+   step 0 (mid-epoch), then ``--resume auto --compute bf16`` continuing it
+   to the planned total; the dSprites pipeline on synthetic sprites at
+   batch 128, ``cli.pxy`` (20 steps, 1 warp a step + 1 for the step-0
+   grid), ``cli.rp --encoder_pxy`` on its file (20 steps, 3 warps a step
+   + 2 for the grid), ``cli.rp --resume auto --compute bf16`` to the
+   planned total, then ``cli.pxy_color`` and ``cli.rp_color`` (10 steps
+   each); and the fused conv's probe, ``python -m
    eadgan_tpu_torch.tools.fused_conv_probe`` at its defaults, whose
    record gives the fused conv's kernel and library times;
-5. timing with CUDA events: the B=128 step in f32 and in bf16, the warp
-   beside its bound, its plain version and the library call that computes
-   the same function, and the fused conv's plain version, bound and host
-   cost per call.
+5. timing with CUDA events: the B=128 CelebA step in f32 and in bf16 and
+   the rp step gray f32, gray bf16 and colored f32 (with images/s and the
+   warp's share), the warp beside its bound, its plain version and the
+   library call that computes the same function at (128, 64, 64, 3) and
+   at (128, 64, 64, 1) in both paddings, and the fused conv's plain
+   version, bound and host cost per call.
 
 Its last lines are the ``{"kernels": [...]}`` record, the ``nvidia-smi``
 name/power-limit line, and ``{"ok": true, "device": {...}}``.
@@ -139,6 +151,10 @@ WARP_CASES = [
     ),
 ]
 
+# the dSprites trainers' warps: (channels, matrices); C = 1 is the shape
+# the TPU ran through its pair kernel (stn_pallas.py:116), C = 3 colored
+DSPRITES_WARP_CASES = [(c, m) for c in (1, 3) for m in ("align", "rp")]
+
 # (batch, hw, cin, cout) of the fused conv: the CPU tests' shapes, the
 # CelebA discriminator's layer 2 at batch 128 (the probe's default, the
 # main path's shape), Couts that are no multiple of the N tile, Cins that
@@ -188,6 +204,7 @@ def phase_kernel_vs_plain(torch):
     from eadgan_tpu_torch.ops.stn import warp_affine_plain
     from eadgan_tpu_torch.ops.stn_cuda import warp_affine_cuda
     from eadgan_tpu_torch.transforms import RPQXY, code_to_matrix
+    from eadgan_tpu_torch.utils.profiler import sprite_warp_inputs
 
     errs = {}
     gen = torch.Generator().manual_seed(0)
@@ -208,6 +225,22 @@ def phase_kernel_vs_plain(torch):
         check(math.isfinite(err) and err <= tol, f"kernel vs plain {name} {pad} {dtype}: {err}")
         if name == "celeba_main" and pad == "border" and dtype == torch.float32:
             errs["warp_affine"] = err
+
+    for channels, matrices in DSPRITES_WARP_CASES:
+        img32, matrix = sprite_warp_inputs(channels, matrices, "cuda")
+        for dtype in (torch.float32, torch.bfloat16):
+            img = img32.to(dtype)
+            for pad in ("border", "zeros"):
+                got = warp_affine_cuda(img, matrix, pad)
+                ref = warp_affine_plain(img, matrix, pad)
+                torch.cuda.synchronize()
+                check(got.dtype == dtype and got.shape == img.shape, f"dsprites warp: dtype/shape")
+                err = (got.float() - ref.float()).abs().max().item()
+                tol = 2e-5 if dtype == torch.float32 else 1e-2
+                name = f"dsprites_c{channels}_{matrices}"
+                emit({"case": name, "kernel": "warp_affine", "shape": list(img.shape), "padding": pad,
+                      "dtype": str(dtype).removeprefix("torch."), "max_abs_err": err, "tol": tol})
+                check(math.isfinite(err) and err <= tol, f"kernel vs plain {name} {pad} {dtype}: {err}")
 
     # gradients through the warp's autograd wrapper equal the plain ones
     img = torch.rand((2, 16, 16, 3), generator=gen).cuda()
@@ -283,13 +316,66 @@ def phase_step_parity(torch):
             for dev, state in states.items():
                 _, m = step(state, torch.from_numpy(imgs).to(dev), fixed)
                 losses[dev] = {k: float(v) for k, v in m.items()}
-            rtol = STEP_RTOL[compute][0 if s == 0 else 1]
-            for k, ref in losses["cpu"].items():
-                got = losses["cuda"][k]
-                rel = abs(got - ref) / max(abs(ref), 1e-12)
-                emit({"step_parity": s, "compute": compute, "loss": k, "cpu": ref, "cuda": got,
-                      "rel": rel, "rtol": rtol})
-                check(math.isfinite(got) and rel <= rtol, f"{compute} step {s} {k}: cpu {ref} cuda {got}")
+            _check_step_losses("celeba", compute, s, losses)
+
+
+def _check_step_losses(label, compute, s, losses):
+    rtol = STEP_RTOL[compute][0 if s == 0 else 1]
+    for k, ref in losses["cpu"].items():
+        got = losses["cuda"][k]
+        rel = abs(got - ref) / max(abs(ref), 1e-12)
+        emit({"step_parity": s, "pipeline": label, "compute": compute, "loss": k, "cpu": ref,
+              "cuda": got, "rel": rel, "rtol": rtol})
+        check(math.isfinite(got) and rel <= rtol, f"{label} {compute} step {s} {k}: cpu {ref} cuda {got}")
+
+
+def phase_step_parity_dsprites(torch):
+    """The pxy step (gray, colored) and the rp step (gray, colored; gray
+    also bf16), batch 4, three steps at the CLIs' rates, on the CPU and
+    on the card from the same weights and draws."""
+    import numpy as np
+
+    from eadgan_tpu_torch.data.dsprites import synthetic_dsprites
+    from eadgan_tpu_torch.train.config import PxyConfig, SpritesGanConfig
+    from eadgan_tpu_torch.train.gan_dsprites import init_sprites_gan_state, make_sprites_gan_step
+    from eadgan_tpu_torch.train.pretrain import init_pxy_state, make_pxy_step, pxy_encoder
+
+    batch = 4
+    sprites = synthetic_dsprites(n_pos=3).imgs
+    runs = [("pxy", False, "f32"), ("pxy", True, "f32"), ("rp", False, "f32"), ("rp", True, "f32"),
+            ("rp", False, "bf16")]
+    for pipeline, colored, compute in runs:
+        dtype = torch.bfloat16 if compute == "bf16" else None
+        if pipeline == "pxy":
+            config = PxyConfig.for_dataset(colored, batch_size=batch)
+            step = make_pxy_step(config)
+            states = {dev: init_pxy_state(config, device=dev, seed=0) for dev in ("cpu", "cuda")}
+        else:
+            config = SpritesGanConfig.for_dataset(colored, batch_size=batch)
+            step = make_sprites_gan_step(config)
+            states = {
+                dev: init_sprites_gan_state(config, pxy_encoder(colored, seed=1), device=dev,
+                                            seed=0, dtype=dtype)
+                for dev in ("cpu", "cuda")
+            }
+        code_dim = config.code_dim
+        rng = np.random.default_rng(0)
+        imgs = sprites[rng.choice(len(sprites), batch, replace=False)][..., None].astype(np.float32)
+        label = f"{pipeline}_color" if colored else pipeline
+        for s in range(3):
+            if pipeline == "pxy":
+                fixed = {"code": rng.uniform(-1, 1, (batch, code_dim)).astype(np.float32)}
+            else:
+                fixed = {f"{k}_{p}": v for p in ("d", "i") for k, v in (
+                    ("code", rng.uniform(-1, 1, (batch, code_dim)).astype(np.float32)),
+                    ("onehot", np.eye(3, dtype=np.float32)[rng.integers(0, 3, batch)]))}
+            if colored:
+                fixed["color"] = rng.uniform(0.5, 1.0, (batch, 3)).astype(np.float32)
+            losses = {}
+            for dev, state in states.items():
+                _, m = step(state, torch.from_numpy(imgs).to(dev), fixed)
+                losses[dev] = {k: float(v) for k, v in m.items()}
+            _check_step_losses(label, compute, s, losses)
 
 
 @contextlib.contextmanager
@@ -317,10 +403,10 @@ def run_module(torch, module: str, argv) -> None:
     torch.cuda.synchronize()
 
 
-def read_records(path):
+def read_records(path, keys=("d_loss", "g_loss")):
     records = [json.loads(line) for line in open(path)]
     for r in records:
-        check(math.isfinite(r["d_loss"]) and math.isfinite(r["g_loss"]), f"loss {r}")
+        check(all(math.isfinite(r[k]) for k in keys), f"loss {r}")
     return records
 
 
@@ -390,6 +476,81 @@ def phase_trainer(torch):
     return {"warp_affine": launches}
 
 
+RP_KEYS = ("d_loss", "g_loss", "cat_loss", "cont_loss", "affine_loss", "relative_cat_loss")
+RP_STEPS, RP_GRID_WARPS = 20, 2  # the gray rp run: steps, and the step-0 grid's warps
+
+
+def phase_dsprites_trainers(torch):
+    """The dSprites pipeline through its four CLIs at batch 128 on
+    synthetic sprites (540 images, 4 batches an epoch): each run's warp
+    launches are counted from 0 and must be exactly one per pxy step and
+    three per rp step, plus the step-0 grid's (pxy: one align; rp: one
+    align and one distort).  The gray rp run saves its train state at
+    step 0 and the bf16 run resumes it to the planned total (5 epochs,
+    20 steps).  Returns the launches by run."""
+    from eadgan_tpu_torch.ops import stn_cuda
+    from eadgan_tpu_torch.train.checkpoint import saved_steps
+
+    launches, out = {}, []
+    with tempfile.TemporaryDirectory(prefix="eadgan_sprites_") as tmp, \
+            environ(EADGAN_PLATFORM="cuda", EADGAN_SYNTH_POS="3"):
+
+        def run(label, module, steps, per_step, grid, argv, keys, first=0):
+            jsonl = os.path.join(tmp, f"{label}.jsonl")
+            stn_cuda.reset_launch_count()  # counts from here read this run only
+            t0 = time.perf_counter()
+            run_module(torch, module, ["--batch_size", "128", "--data_dir", tmp,
+                                       "--out_dir", os.path.join(tmp, label), "--ckpt_dir", tmp,
+                                       "--jsonl", jsonl, *argv])
+            wall = time.perf_counter() - t0
+            records = read_records(jsonl, keys)
+            check([r["step"] for r in records] == list(range(first, first + steps)),
+                  f"{label} steps {[r['step'] for r in records]}")
+            want = per_step * steps + grid
+            check(stn_cuda.launch_count == want,
+                  f"{label}: warp launched {stn_cuda.launch_count} times, expected {want}")
+            launches[label] = stn_cuda.launch_count
+            out.append({"trainer": module, "run": label, "batch_size": 128, "steps": steps,
+                        "warp_launches": stn_cuda.launch_count, "expected_launches": want,
+                        "wall_s": wall, "loop_step_ms_host_clock": loop_ms(records),
+                        "last": records[-1]})
+
+        def grids(label, names):
+            for name in names:
+                check(os.path.isfile(os.path.join(tmp, label, name, "0.png")), f"{label} grid {name}")
+
+        rp_grids = ["original", "trans"] + [f"varying_c{k}" for k in range(1, 8)]
+        run("pxy", "eadgan_tpu_torch.cli.pxy", 20, 1, 1,
+            ["--max_steps", "20", "--sample_interval", "20"], ["affine_loss"])
+        grids("pxy", ["original", "align"])
+        pxy_file = os.path.join(tmp, "encoder_pxy_0.pt")
+        check(os.path.isfile(pxy_file), "encoder_pxy_0.pt")
+        check(saved_steps(tmp, "encoder_pxy_train_state") == [0], "pxy train state")
+
+        rp_args = ["--encoder_pxy", pxy_file, "--n_epochs", "5", "--keep_states", "1"]
+        run("rp", "eadgan_tpu_torch.cli.rp", RP_STEPS, 3, RP_GRID_WARPS,
+            rp_args + ["--max_steps", str(RP_STEPS), "--sample_interval", str(RP_STEPS)], RP_KEYS)
+        grids("rp", rp_grids)
+        for name in ("encoder_0.pt", "generator_0.pt"):
+            check(os.path.isfile(os.path.join(tmp, name)), name)
+        check(saved_steps(tmp, "rp_train_state") == [0], "rp train state")
+        # step 1 is inside epoch 0: its 3 remaining batches, then 4 epochs
+        run("rp_resumed_bf16", "eadgan_tpu_torch.cli.rp", RP_STEPS - 1, 3, 0,
+            rp_args + ["--resume", "auto", "--compute", "bf16", "--sample_interval", "1000"],
+            RP_KEYS, first=1)
+
+        run("pxy_color", "eadgan_tpu_torch.cli.pxy_color", 10, 1, 1,
+            ["--max_steps", "10", "--sample_interval", "10"], ["affine_loss"])
+        color_file = os.path.join(tmp, "encoder_pxy_color_0.pt")
+        check(os.path.isfile(color_file), "encoder_pxy_color_0.pt")
+        run("rp_color", "eadgan_tpu_torch.cli.rp_color", 10, 3, 2,
+            ["--encoder_pxy", color_file, "--max_steps", "10", "--sample_interval", "10"], RP_KEYS)
+        grids("rp_color", rp_grids)
+    for record in out:
+        emit(record)
+    return launches
+
+
 def phase_probe(torch):
     """The fused conv's main path: its probe entry point at its defaults."""
     from eadgan_tpu_torch.ops import fused_conv_cuda
@@ -418,21 +579,21 @@ def bound(bytes_moved, flops, flops_per_s):
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
 
-def time_step(torch, compute, dtype):
-    from eadgan_tpu_torch.train.config import CelebaConfig
-    from eadgan_tpu_torch.train.gan_celeba import init_celeba_gan_state, make_celeba_gan_step
+def time_step(torch, pipeline, compute, dtype):
+    """One pipeline's train step at B=128 by CUDA events: the median of
+    30 single steps after 5 warm-up steps, with the warp's launches a
+    step counted over those 30."""
+    from eadgan_tpu_torch.ops import stn_cuda
+    from eadgan_tpu_torch.utils.profiler import build_step
 
     batch = 128
-    config = CelebaConfig(batch_size=batch)
-    state = init_celeba_gan_state(config, device="cuda", seed=0, dtype=dtype)
-    step = make_celeba_gan_step(config)
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    imgs = torch.rand((batch, 64, 64, 3), generator=gen, device="cuda") * 2 - 1
+    state, step, imgs = build_step(pipeline, batch, dtype)
     for _ in range(5):
         step(state, imgs)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     events = []
+    warp_before = stn_cuda.launch_count
     t0 = time.perf_counter()
     for _ in range(30):
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -444,15 +605,17 @@ def time_step(torch, compute, dtype):
     host_ms = (time.perf_counter() - t0) * 1e3 / 30
     step_ms = statistics.median(s.elapsed_time(e) for s, e in events)
     check(all(math.isfinite(float(v)) for v in metrics.values()), f"step metrics {metrics}")
-    emit({"step": f"celeba_{compute}", "batch_size": batch, "median_ms_cuda_events": step_ms,
-          "mean_ms_host_clock": host_ms, "img_per_s": batch / step_ms * 1e3,
-          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "samples": 30})
+    record = {"step": f"{pipeline}_{compute}", "batch_size": batch, "median_ms_cuda_events": step_ms,
+              "mean_ms_host_clock": host_ms, "img_per_s": batch / step_ms * 1e3,
+              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "samples": 30,
+              "warp_launches_per_step": (stn_cuda.launch_count - warp_before) / 30}
     del state
+    return record
 
 
-def time_warp(torch, n, h, w, c, cycles, gen):
+def time_warp(torch, n, h, w, c, cycles, gen, padding="border"):
     """(kernel, plain, library, wrapper host) ms and the bound of the warp
-    at one f32 shape, border padding."""
+    at one f32 shape and padding."""
     import torch.nn.functional as F
 
     from eadgan_tpu_torch.ops.stn import warp_affine_plain
@@ -468,25 +631,29 @@ def time_warp(torch, n, h, w, c, cycles, gen):
 
     def library():
         grid = F.affine_grid(theta, (n, c, h, w), align_corners=False)
-        return F.grid_sample(img_nchw, grid, padding_mode="border", align_corners=False)
+        return F.grid_sample(img_nchw, grid, padding_mode=padding, align_corners=False)
 
     # the yardstick computes the same function; its own grid arithmetic
     # rounds differently (measured 1.6e-5 on an H100), hence 1e-4
-    lib_err = (library().permute(0, 2, 3, 1) - warp_affine_cuda(img, matrix)).abs().max().item()
+    lib_err = (library().permute(0, 2, 3, 1) - warp_affine_cuda(img, matrix, padding)).abs().max().item()
     check(lib_err <= 1e-4, f"library call disagrees with the warp kernel: {lib_err}")
     elem = n * h * w * c
     bytes_moved = 2 * elem * 4 + n * 6 * 4  # image read once, output written once, theta
     flops = elem * 7 + n * h * w * 25  # 4-tap weighted sum per element, coordinates per pixel
     bound_ms, bound_by = bound(bytes_moved, flops, F32_FLOPS_PER_S)
+    def kernel():
+        return warp_affine_cuda(img, matrix, padding)
+
     return {
         "shape": [n, h, w, c],
-        "ms": device_ms(lambda: warp_affine_cuda(img, matrix), 200, cycles),
-        "plain_ms": device_ms(lambda: warp_affine_plain(img, matrix), 20, cycles),
+        "padding": padding,
+        "ms": device_ms(kernel, 200, cycles),
+        "plain_ms": device_ms(lambda: warp_affine_plain(img, matrix, padding), 20, cycles),
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": device_ms(library, 100, cycles),
-        "wrapper_call_ms_host_clock": host_ms_per_call(lambda: warp_affine_cuda(img, matrix), 200),
-        "wrapper_enqueue_ms_host_clock": host_enqueue_ms(lambda: warp_affine_cuda(img, matrix), 200),
+        "wrapper_call_ms_host_clock": host_ms_per_call(kernel, 200),
+        "wrapper_enqueue_ms_host_clock": host_enqueue_ms(kernel, 200),
         "library_vs_kernel_max_abs_err": lib_err,
     }
 
@@ -500,17 +667,27 @@ def phase_timing(torch, errs, probe):
     from eadgan_tpu_torch.utils.timing import (device_ms, host_enqueue_ms, host_ms_per_call,
                                                sleep_cycles_per_ms)
 
-    # the train step at B=128, f32 (TF32 off) and bf16
-    time_step(torch, "f32", None)
-    time_step(torch, "bf16", torch.bfloat16)
+    # the train steps at B=128, f32 (TF32 off) and bf16
+    steps = [time_step(torch, pipeline, compute, dtype) for pipeline, compute, dtype in (
+        ("celeba", "f32", None), ("celeba", "bf16", torch.bfloat16), ("rp", "f32", None),
+        ("rp", "bf16", torch.bfloat16), ("rp_color", "f32", None))]
 
     cycles = sleep_cycles_per_ms()
     gen = torch.Generator(device="cuda").manual_seed(1)
-    # the warp at the main path's shape, and at C = 1, where the TPU took
-    # its pair kernel (stn_pallas.py:116)
+    # the warp at the CelebA and colored dSprites shape, and at C = 1 (gray
+    # dSprites), where the TPU took its pair kernel (stn_pallas.py:116), in
+    # both paddings there
     warp = time_warp(torch, 128, 64, 64, 3, cycles, gen)
     warp_c1 = time_warp(torch, 128, 64, 64, 1, cycles, gen)
-    emit({"warp_timing": warp, "warp_timing_c1": warp_c1})
+    warp_c1_zeros = time_warp(torch, 128, 64, 64, 1, cycles, gen, padding="zeros")
+    emit({"warp_timing": warp, "warp_timing_c1": warp_c1, "warp_timing_c1_zeros": warp_c1_zeros})
+    # the rp step's warps against its time (gray: C = 1, colored: C = 3)
+    for record in steps:
+        if record["step"].startswith("rp"):
+            one = warp if record["step"].startswith("rp_color") else warp_c1
+            record["warp_share_of_step"] = (record["warp_launches_per_step"] * one["ms"]
+                                            / record["median_ms_cuda_events"])
+        emit(record)
     warp_kernel = {
         "name": "warp_affine",
         "route": "cuda",
@@ -521,7 +698,12 @@ def phase_timing(torch, errs, probe):
         "max_abs_err": errs["warp_affine"],
         **{k: warp[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                 "wrapper_call_ms_host_clock", "wrapper_enqueue_ms_host_clock")},
-        **{f"c1_{k}": warp_c1[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "library_ms")},
+        **{f"c1_{k}": warp_c1[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "library_ms",
+                                           "wrapper_call_ms_host_clock",
+                                           "wrapper_enqueue_ms_host_clock")},
+        **{f"c1_zeros_{k}": warp_c1_zeros[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms",
+                                                       "wrapper_call_ms_host_clock",
+                                                       "wrapper_enqueue_ms_host_clock")},
     }
 
     # the fused conv at its main path's shape: its plain version, bound and
@@ -566,10 +748,13 @@ def main() -> None:
     phase_environment(torch)
     print("== phase 2: kernels vs plain versions on the card", flush=True)
     errs = phase_kernel_vs_plain(torch)
-    print("== phase 3: CelebA step, CPU vs CUDA, f32 and bf16", flush=True)
+    print("== phase 3: train steps, CPU vs CUDA (CelebA; dSprites pxy and rp)", flush=True)
     phase_step_parity(torch)
-    print("== phase 4: main paths (trainer, then the fused conv's probe)", flush=True)
-    launches = phase_trainer(torch)
+    phase_step_parity_dsprites(torch)
+    print("== phase 4: main paths (the CelebA and dSprites trainers, then the fused conv's probe)",
+          flush=True)
+    warp_by_path = {"celeba": phase_trainer(torch)["warp_affine"], **phase_dsprites_trainers(torch)}
+    launches = {"warp_affine": sum(warp_by_path.values())}
     probe_launches, probe = phase_probe(torch)
     launches.update(probe_launches)
     print("== phase 5: timing", flush=True)
@@ -577,6 +762,10 @@ def main() -> None:
     for k in kernels:
         k["launches"] = launches[k["name"]]
         check(k["launches"] > 0, f"{k['name']} was not launched on its main path")
+        if k["name"] == "warp_affine":
+            k["launches_by_path"] = warp_by_path
+            # from the gray rp CLI's run, counted from 0 just before it
+            k["launches_per_rp_step"] = (warp_by_path["rp"] - RP_GRID_WARPS) / RP_STEPS
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     emit({"kernels": kernels})
     print(nvidia_smi_line(), flush=True)

@@ -3,6 +3,17 @@
 from eadgan_tpu_torch.interop.from_jax import (
     celeba_discriminator_from_flax,
     celeba_generator_from_flax,
+    sprites_discriminator_from_flax,
+    sprites_encoder_from_flax,
+    sprites_encoder_pxy_from_flax,
+    sprites_generator_from_flax,
 )
 
-__all__ = ["celeba_generator_from_flax", "celeba_discriminator_from_flax"]
+__all__ = [
+    "celeba_generator_from_flax",
+    "celeba_discriminator_from_flax",
+    "sprites_encoder_pxy_from_flax",
+    "sprites_generator_from_flax",
+    "sprites_discriminator_from_flax",
+    "sprites_encoder_from_flax",
+]

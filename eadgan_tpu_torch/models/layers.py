@@ -9,21 +9,22 @@ compute ``dtype`` as flax's: ``None`` computes in the parameters' float32;
 ``torch.bfloat16`` casts the input, the weight and the bias to bf16,
 convolves without the bias, adds the bias in bf16 and returns bf16, as
 flax's ``Conv(dtype=bf16)`` does (``promote_dtype``, then ``y += bias``).
-Parameters stay float32 either way.  Two layers carry state that torch
+:class:`TorchDense` is ``nn.Linear`` with the same compute ``dtype``.
+Parameters stay float32 either way.  Three layers carry state that torch
 would handle differently:
 
-* :class:`SNConv` does flax's spectral normalization (one power step
-  from a stored ``u`` per forward, ``sigma`` stored beside it), not
-  ``torch.nn.utils.spectral_norm``'s ``weight_u``/``weight_v`` scheme.
-  The power step always runs in float32 on the float32 weight: the JAX
-  package's ``nn.SpectralNorm`` wraps the bf16 conv but takes no dtype
-  itself, so it normalizes the float32 kernel and the conv casts the
-  result;
+* :class:`SNConv` and :class:`SNDense` do flax's spectral normalization
+  (one power step from a stored ``u`` per forward, ``sigma`` stored
+  beside it), not ``torch.nn.utils.spectral_norm``'s
+  ``weight_u``/``weight_v`` scheme.  The power step always runs in
+  float32 on the float32 weight: the JAX package's ``nn.SpectralNorm``
+  wraps the bf16 layer but takes no dtype itself, so it normalizes the
+  float32 kernel and the layer casts the result;
 * :class:`TorchBatchNorm` normalizes with the biased batch variance
   (E[x^2] - E[x]^2, as flax computes it) and also updates the running
   variance with the biased value, where torch's would use the unbiased.
 
-Both update their state in training mode only, and not inside
+They update their state in training mode only, and not inside
 :func:`no_stat_updates`.  Layout is NCHW.
 """
 
@@ -35,7 +36,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["TorchConv", "TorchConvTranspose", "SNConv", "TorchBatchNorm", "no_stat_updates"]
+__all__ = [
+    "TorchConv",
+    "TorchConvTranspose",
+    "TorchDense",
+    "SNConv",
+    "SNDense",
+    "TorchBatchNorm",
+    "no_stat_updates",
+]
 
 _SN_EPS = 1e-12
 
@@ -87,11 +96,31 @@ class TorchConvTranspose(nn.ConvTranspose2d):
         return _add_bias(y, self.bias, dt)
 
 
-class SNConv(TorchConv):
-    """Spectral-normalized ``nn.Conv2d`` with flax ``SpectralNorm`` state.
+class TorchDense(nn.Linear):
+    """``nn.Linear`` with a compute ``dtype`` (None: float32), rounded
+    at flax ``Dense``'s points: input, weight and bias cast to ``dtype``,
+    the product without the bias, then the bias added in ``dtype``."""
 
-    Each forward takes one power step over the kernel viewed as
-    (kh*kw*in, out) (here as its transpose, (out, in*kh*kw): the same
+    def __init__(self, in_features, out_features, dtype=None):
+        super().__init__(in_features, out_features)
+        self.compute_dtype = dtype
+
+    def linear(self, x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt is None:
+            return F.linear(x, weight, self.bias)
+        return F.linear(x.to(dt), weight.to(dt)) + self.bias.to(dt)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.linear(x, self.weight)
+
+
+class _SpectralNorm:
+    """flax ``SpectralNorm`` state and power step for a layer whose
+    ``weight`` has the output features first (conv or linear).
+
+    Each forward takes one power step over the weight viewed as
+    (in_features..., out) (here as its transpose, (out, K): the same
     singular values, with ``v`` permuted):
     ``v = l2n(u W^T)``, ``u = l2n(v W)``, both detached, then
     ``sigma = v W u^T`` and the weight is divided by ``sigma`` (unless it
@@ -100,9 +129,8 @@ class SNConv(TorchConv):
     ``u``, and discarded.
     """
 
-    def __init__(self, in_channels, out_channels, kernel_size, stride=1, padding=0, dtype=None):
-        super().__init__(in_channels, out_channels, kernel_size, stride, padding, dtype)
-        self.register_buffer("u", torch.randn(out_channels))
+    def _register_sn(self, out_features: int) -> None:
+        self.register_buffer("u", torch.randn(out_features))
         self.register_buffer("sigma", torch.ones(()))
         self.update_stats = True
 
@@ -119,8 +147,29 @@ class SNConv(TorchConv):
                 self.sigma.copy_(sigma)
         return w / torch.where(sigma != 0, sigma, torch.ones_like(sigma))
 
+
+class SNConv(_SpectralNorm, TorchConv):
+    """Spectral-normalized ``nn.Conv2d`` with flax ``SpectralNorm`` state
+    (:class:`_SpectralNorm`)."""
+
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1, padding=0, dtype=None):
+        super().__init__(in_channels, out_channels, kernel_size, stride, padding, dtype)
+        self._register_sn(out_channels)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv(x, self.normalized_weight())
+
+
+class SNDense(_SpectralNorm, TorchDense):
+    """Spectral-normalized ``nn.Linear`` with flax ``SpectralNorm`` state
+    (:class:`_SpectralNorm`)."""
+
+    def __init__(self, in_features, out_features, dtype=None):
+        super().__init__(in_features, out_features, dtype)
+        self._register_sn(out_features)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.linear(x, self.normalized_weight())
 
 
 class TorchBatchNorm(nn.Module):
@@ -171,9 +220,9 @@ class TorchBatchNorm(nn.Module):
 def no_stat_updates(model: nn.Module):
     """Inside the block, training-mode forwards of ``model`` leave the
     BatchNorm running statistics and the spectral-norm ``u``/``sigma``
-    untouched (the JAX package applies a model and discards the updated
-    ``batch_stats``)."""
-    layers = [m for m in model.modules() if isinstance(m, (SNConv, TorchBatchNorm))]
+    (of :class:`SNConv` and :class:`SNDense`) untouched (the JAX package
+    applies a model and discards the updated ``batch_stats``)."""
+    layers = [m for m in model.modules() if isinstance(m, (_SpectralNorm, TorchBatchNorm))]
     saved = [m.update_stats for m in layers]
     for m in layers:
         m.update_stats = False

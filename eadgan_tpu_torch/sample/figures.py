@@ -1,5 +1,6 @@
-"""CelebA training sample grids (a copy of ``celeba_training_grids`` from
-the JAX package's ``sample/figures.py``; numpy and PIL only).
+"""Training sample grids: copies of ``celeba_training_grids``,
+``sprites_training_grids`` and ``pxy_grids`` from the JAX package's
+``sample/figures.py`` (numpy and PIL only).
 
 The generator is passed as an ``apply`` callable mapping numpy latent
 inputs to NHWC images, so any weights snapshot works.
@@ -11,7 +12,7 @@ import numpy as np
 
 from eadgan_tpu_torch.sample.grid import save_image
 
-__all__ = ["celeba_training_grids"]
+__all__ = ["celeba_training_grids", "sprites_training_grids", "pxy_grids"]
 
 
 def _sweep(code_dim, dims, values):
@@ -50,3 +51,39 @@ def celeba_training_grids(
         save_image(
             np.asarray(sample), f"{out_dir}/varying_c{k+1}/{batches_done}.png", nrow=n_row
         )
+
+
+def sprites_training_grids(
+    apply_g, align_img, trans_img, out_dir, batches_done, code_dim=4, n_cols=10
+):
+    """dSprites/rp.py:293-353 (colored the same with code_dim=7):
+    original + trans grids rescaled to [-1, 1], then 7 sweeps over a
+    70-row label pattern [0,1,2,0,1,2,0]; sweeps 5-7 repeat the code-0
+    sweep (a reference quirk, rp.py:319-321)."""
+    save_image(
+        (np.asarray(align_img) - 0.5) * 2, f"{out_dir}/original/{batches_done}.png", nrow=n_cols
+    )
+    save_image(
+        (np.asarray(trans_img) - 0.5) * 2, f"{out_dir}/trans/{batches_done}.png", nrow=n_cols
+    )
+
+    labels = np.repeat(np.array([0, 1, 2, 0, 1, 2, 0]), n_cols)
+    onehot = np.eye(3, dtype=np.float32)[labels]
+    ramp = np.tile(np.linspace(-1, 1, n_cols), 7).astype(np.float32)
+    sweep_dims = [[0], [1], [2], [3], [0], [0], [0]]
+    for k, dims in enumerate(sweep_dims):
+        dims = [d for d in dims if d < code_dim]
+        c = _sweep(code_dim, dims, ramp)
+        z_c = np.concatenate([onehot, c], axis=-1)
+        sample = (np.asarray(apply_g(z_c)) - 0.5) * 2
+        save_image(sample, f"{out_dir}/varying_c{k+1}/{batches_done}.png", nrow=n_cols)
+
+
+def pxy_grids(real_img, align_img, out_dir, batches_done, n_row=10):
+    """dSprites/pxy.py:130-148: original + aligned grids in [-1, 1]."""
+    save_image(
+        (np.asarray(real_img) - 0.5) * 2, f"{out_dir}/original/{batches_done}.png", nrow=n_row
+    )
+    save_image(
+        (np.asarray(align_img) - 0.5) * 2, f"{out_dir}/align/{batches_done}.png", nrow=n_row
+    )

@@ -3,23 +3,29 @@
 PyTorch counterpart of ``eadgan_tpu/train/checkpoint.py``, in the port's
 own ``torch.save`` format.  Two kinds of file:
 
-* **model files** under the reference's names (the CelebA trainer's
-  ``checkpoint_%d.tar``: both models plus epoch/batches_done);
-* **train-state files** (``<stem>_%d.ckpt``): both models' state_dicts
-  (parameters, BatchNorm statistics, spectral-norm ``u``/``sigma``), the
-  three optimizers' state_dicts (Adam moments and step counts), the step
-  and the ``torch.Generator`` state, so a run resumes bit for bit.
+* **model files** under the reference's names: the CelebA trainer's
+  ``checkpoint_%d.tar`` (both models plus epoch/batches_done), and one
+  model's ``state_dict`` (:func:`save_model` / :func:`restore_model`) for
+  the dSprites trainers' ``encoder_pxy_%d.pt``,
+  ``encoder_pxy_color_%d.pt``, ``encoder_%d.pt`` and ``generator_%d.pt``;
+* **train-state files** (``<stem>_%d.ckpt``): one entry per field of the
+  state that is not None (``train/state.py``): each model's state_dict
+  (parameters, BatchNorm statistics, spectral-norm ``u``/``sigma``),
+  each optimizer's state_dict (Adam moments and step counts), the step
+  and the ``torch.Generator`` state, so a run resumes bit for bit.  A
+  file loads only into a state with the same fields.
 
 Writes are atomic: a temporary file in the same directory, fsynced, then
 ``os.replace``; a crash mid-write leaves the previous file intact.  On
 restore, :func:`restore_latest` skips a newest file that does not load
 (damaged on disk, or truncated by a writer older than the atomic one)
-and falls back to the next.  Reading the JAX package's train state is not
+and falls back to the next.  Reading the JAX package's files is not
 done here.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import re
 import sys
@@ -30,6 +36,8 @@ from torch import nn
 
 __all__ = [
     "save_checkpoint",
+    "save_model",
+    "restore_model",
     "cpu_state_dict",
     "save_train_state",
     "restore_train_state",
@@ -38,9 +46,6 @@ __all__ = [
     "latest_step",
     "prune_saved",
 ]
-
-_STATE_KEYS = frozenset({"g", "d", "opt_g", "opt_d", "opt_info", "step", "rng"})
-
 
 def cpu_state_dict(model: nn.Module) -> Dict[str, torch.Tensor]:
     """``model.state_dict()`` with every tensor detached and on the CPU,
@@ -74,41 +79,64 @@ def _cpu(obj):
     return obj
 
 
-def _payload(state) -> Dict[str, Any]:
+def save_model(path: str, model: nn.Module) -> None:
+    """Save one model's ``state_dict`` to ``path`` atomically."""
+    save_checkpoint(path, cpu_state_dict(model))
+
+
+def restore_model(path: str, model: nn.Module) -> nn.Module:
+    """Load a :func:`save_model` file into ``model`` (strict) in place;
+    returns it."""
+    model.load_state_dict(torch.load(path, map_location="cpu", weights_only=True))
+    return model
+
+
+def _fields(state) -> Dict[str, Any]:
+    """The state's fields that are not None, by name."""
     return {
-        "g": cpu_state_dict(state.g),
-        "d": cpu_state_dict(state.d),
-        "opt_g": _cpu(state.opt_g.state_dict()),
-        "opt_d": _cpu(state.opt_d.state_dict()),
-        "opt_info": _cpu(state.opt_info.state_dict()),
-        "step": int(state.step),
-        "rng": state.rng.get_state(),
+        f.name: getattr(state, f.name)
+        for f in dataclasses.fields(state)
+        if getattr(state, f.name) is not None
     }
+
+
+def _payload(state) -> Dict[str, Any]:
+    out = {}
+    for name, value in _fields(state).items():
+        if isinstance(value, nn.Module):
+            out[name] = cpu_state_dict(value)
+        elif isinstance(value, torch.optim.Optimizer):
+            out[name] = _cpu(value.state_dict())
+        elif isinstance(value, torch.Generator):
+            out[name] = value.get_state()
+        else:
+            out[name] = int(value)  # the step
+    return out
 
 
 def _apply(state, payload: Dict[str, Any]):
     """Load a train-state payload into ``state`` in place; returns it."""
-    state.g.load_state_dict(payload["g"])
-    state.d.load_state_dict(payload["d"])
-    state.opt_g.load_state_dict(payload["opt_g"])
-    state.opt_d.load_state_dict(payload["opt_d"])
-    state.opt_info.load_state_dict(payload["opt_info"])
-    state.rng.set_state(payload["rng"])
-    state.step = int(payload["step"])
+    for name, value in _fields(state).items():
+        if isinstance(value, (nn.Module, torch.optim.Optimizer)):
+            value.load_state_dict(payload[name])
+        elif isinstance(value, torch.Generator):
+            value.set_state(payload[name])
+        else:
+            setattr(state, name, int(payload[name]))
     return state
 
 
-def _load(path: str) -> Dict[str, Any]:
+def _load(path: str, state) -> Dict[str, Any]:
     payload = torch.load(path, map_location="cpu", weights_only=True)
-    if not isinstance(payload, dict) or set(payload) != _STATE_KEYS:
-        raise ValueError(f"{path} is not a train-state file")
+    if not isinstance(payload, dict) or set(payload) != set(_fields(state)):
+        raise ValueError(f"{path} is not a train-state file of this state's fields")
     return payload
 
 
 def restore_train_state(path: str, state):
     """Load the train-state file ``path`` into ``state`` (built by the
     trainer's init for the same configuration) in place; returns it."""
-    return _apply(state, _load(path))
+    return _apply(state, _load(path, state))
 
 
 def saved_steps(directory: str, prefix: str, suffix: str = ".ckpt") -> List[int]:
@@ -200,7 +228,7 @@ def restore_latest(directory: str, prefix: str, state, suffix: str = ".ckpt") ->
     for step in saved_steps(directory, prefix, suffix):
         path = os.path.join(directory, f"{prefix}_{step}{suffix}")
         try:
-            payload = _load(path)
+            payload = _load(path, state)
         except Exception as exc:  # noqa: BLE001 — any failure to read the file
             print(
                 f"warning: checkpoint {path} failed to load ({exc!r}); "

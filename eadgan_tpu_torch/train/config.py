@@ -58,6 +58,12 @@ class PxyConfig:
                 f"got {self.code_dim}"
             )
 
+    @classmethod
+    def for_dataset(cls, colored: bool, **overrides) -> "PxyConfig":
+        """The gray or colored aligner's defaults (code_dim 3 / 6), then
+        ``overrides``."""
+        return cls(**{"code_dim": 6 if colored else 3, "colored": colored, **overrides})
+
 
 @dataclasses.dataclass(frozen=True)
 class SpritesGanConfig:
@@ -95,6 +101,23 @@ class SpritesGanConfig:
                 f"channels must be {expected_ch} for colored={self.colored}, "
                 f"got {self.channels}"
             )
+
+    @classmethod
+    def for_dataset(cls, colored: bool, **overrides) -> "SpritesGanConfig":
+        """The gray or colored step's defaults, then ``overrides``: code_dim
+        4 / 7, channels 1 / 3, lr 1e-4 / 2e-4 (dSprites/rp.py:42,
+        colored_dSprites/rp_color.py:42); D's rate is the hard-coded 2e-4
+        when gray and follows ``lr`` when colored
+        (colored_dSprites/rp_color.py:275) unless ``d_lr`` is given."""
+        lr = overrides.pop("lr", 2e-4 if colored else 1e-4)
+        return cls(**{
+            "code_dim": 7 if colored else 4,
+            "channels": 3 if colored else 1,
+            "lr": lr,
+            "d_lr": lr if colored else 2e-4,
+            "colored": colored,
+            **overrides,
+        })
 
 
 @dataclasses.dataclass(frozen=True)

@@ -40,9 +40,11 @@ def epoch_batches(
     ``start_step`` on: for each epoch a permutation of the uint8 ``data``,
     cut into full batches (the ragged tail is dropped), each gathered as
     float32 ``x * scale + shift`` and, with ``random_flip``, mirrored
-    along the width where a fresh draw is below 0.5.  The epoch holding
-    ``start_step`` yields only its remaining batches, from the start of
-    its permutation."""
+    along the width where a fresh draw is below 0.5.  A 3-D (N, H, W)
+    ``data`` (dSprites) gains a channel axis, (B, H, W, 1), as the JAX
+    engine's ``add_channel`` gives it.  The epoch holding ``start_step``
+    yields only its remaining batches, from the start of its
+    permutation."""
     host_rng = np.random.default_rng(seed)
     flip_rng = np.random.default_rng([seed, _FLIP_STREAM])
     n = data.shape[0]
@@ -57,6 +59,8 @@ def epoch_batches(
             if random_flip:
                 mask = flip_rng.random(len(idx)) < 0.5
                 out[mask] = out[mask, :, ::-1]
+            if data.ndim == 3:
+                out = out[..., None]
             yield epoch, out
 
 

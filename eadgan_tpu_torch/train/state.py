@@ -1,20 +1,23 @@
-"""Train-state container and the optimizer factory.
+"""Train-state containers and the optimizer factory.
 
-PyTorch counterpart of ``eadgan_tpu/train/state.py``.  The state is a
-plain object holding the two models, three ``torch.optim.Adam`` over
+PyTorch counterpart of ``eadgan_tpu/train/state.py``.  A state is a plain
+object holding the models, ``torch.optim.Adam`` optimizers over
 overlapping parameter sets, the step count and a ``torch.Generator`` in
-place of the JAX ``rng``.  The info optimizer runs over G *and* D with
-moments of its own, as two torch optimizers over the same tensors do.
+place of the JAX ``rng``.  An info optimizer runs over two models (G and
+D for CelebA, G and E for dSprites) with moments of its own, as two torch
+optimizers over the same tensors do.  The step functions update a state
+in place; ``train/checkpoint.py`` saves whatever fields it holds.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 from torch import nn
 
-__all__ = ["adam", "GanTrainState"]
+__all__ = ["adam", "GanTrainState", "EncoderTrainState"]
 
 
 def adam(params, lr: float, b1: float = 0.5, b2: float = 0.999) -> torch.optim.Adam:
@@ -24,13 +27,26 @@ def adam(params, lr: float, b1: float = 0.5, b2: float = 0.999) -> torch.optim.A
 
 @dataclasses.dataclass
 class GanTrainState:
-    """Full adversarial-pipeline state; the step functions update it in
-    place."""
+    """Adversarial-pipeline state.  ``e`` is the separate encoder and
+    ``pxy`` the frozen alignment encoder (dSprites only); ``opt_g`` is
+    None for dSprites, whose G update lives in ``opt_info``."""
 
     g: nn.Module
     d: nn.Module
-    opt_g: torch.optim.Optimizer
+    opt_g: Optional[torch.optim.Optimizer]
     opt_d: torch.optim.Optimizer
     opt_info: torch.optim.Optimizer
+    rng: torch.Generator
+    step: int = 0
+    e: Optional[nn.Module] = None
+    pxy: Optional[nn.Module] = None
+
+
+@dataclasses.dataclass
+class EncoderTrainState:
+    """Single-model pretraining state (the pxy alignment encoders)."""
+
+    model: nn.Module
+    opt: torch.optim.Optimizer
     rng: torch.Generator
     step: int = 0

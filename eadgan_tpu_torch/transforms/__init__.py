@@ -1,4 +1,5 @@
-"""Affine code algebra (PyTorch counterpart of ``eadgan_tpu.transforms``)."""
+"""Affine and colour code algebra (PyTorch counterpart of
+``eadgan_tpu.transforms``)."""
 
 from eadgan_tpu_torch.transforms.affine import (
     FAMILIES,
@@ -17,6 +18,13 @@ from eadgan_tpu_torch.transforms.affine import (
     regularize,
     regularize_matrix,
 )
+from eadgan_tpu_torch.transforms.color import (
+    apply_color,
+    color_code_to_gain,
+    gain_to_color_code,
+    regularize_color,
+    remove_color,
+)
 
 __all__ = [
     "AffineFamily",
@@ -34,4 +42,9 @@ __all__ = [
     "regularize_matrix",
     "regularize",
     "pxy_align_matrix",
+    "color_code_to_gain",
+    "gain_to_color_code",
+    "regularize_color",
+    "apply_color",
+    "remove_color",
 ]

@@ -6,6 +6,12 @@ decision is taken inside the fixture, never at import).  On the card:
 (``--noconftest``: ``tests/conftest.py`` imports JAX, which the card's
 machine need not have).
 
+The warp also runs at the dSprites trainers' shapes, (128, 64, 64, 1)
+binary sprites and (128, 64, 64, 3) colorized ones, under the aligner's
+inverse matrices (codes in [-3, 3], so some rows land wholly outside the
+image) and rp matrices, and one gray rp step on the card launches it
+exactly three times.
+
 Tolerances: the warp in float32 2e-5 (nvcc contracts multiply-adds into
 FMA, so a coordinate can land an ulp apart and pick the neighbouring
 texel's weights; bilinear output is continuous, so the error stays
@@ -32,6 +38,7 @@ from eadgan_tpu_torch.ops import (
 )
 from eadgan_tpu_torch.ops.fused_conv import mismatch
 from eadgan_tpu_torch.transforms import RP, RPQMNXY, RPQXY, code_to_matrix
+from eadgan_tpu_torch.utils.profiler import sprite_warp_inputs
 
 pytestmark = pytest.mark.cuda
 
@@ -75,6 +82,38 @@ def test_warp_kernel_matches_plain(cuda, shape, family, scale, pad, dtype, tol):
     torch.cuda.synchronize()
     assert got.dtype == dtype
     assert (got.float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("pad", ["border", "zeros"])
+@pytest.mark.parametrize("matrices", ["align", "rp"])
+@pytest.mark.parametrize("channels", [1, 3])
+def test_warp_kernel_matches_plain_at_dsprites_shapes(cuda, channels, matrices, pad, dtype, tol):
+    img, matrix = sprite_warp_inputs(channels, matrices, cuda)
+    img = img.to(dtype)
+    before = stn_cuda.launch_count
+    got = warp_affine(img, matrix, pad)
+    assert stn_cuda.launch_count == before + 1
+    ref = warp_affine_plain(img, matrix, pad)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    assert (got.float() - ref.float()).abs().max().item() <= tol
+
+
+def test_gray_rp_step_launches_the_warp_three_times(cuda):
+    from eadgan_tpu_torch.train.config import SpritesGanConfig
+    from eadgan_tpu_torch.train.gan_dsprites import init_sprites_gan_state, make_sprites_gan_step
+    from eadgan_tpu_torch.train.pretrain import pxy_encoder
+
+    config = SpritesGanConfig(batch_size=4)
+    state = init_sprites_gan_state(config, pxy_encoder(False, seed=1), device=cuda, seed=0)
+    step = make_sprites_gan_step(config)
+    img, _ = sprite_warp_inputs(1, "rp", cuda)
+    before = stn_cuda.launch_count
+    _, metrics = step(state, img[:4].contiguous())
+    torch.cuda.synchronize()
+    assert stn_cuda.launch_count == before + 3
+    assert all(torch.isfinite(v).item() for v in metrics.values())
 
 
 def test_warp_kernel_rejects_non_contiguous(cuda):
