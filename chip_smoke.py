@@ -24,26 +24,41 @@ a non-zero exit on the first that fails:
 3. train steps on the CPU and on the card from the same weights and
    draws, three steps at batch 4: CelebA at the low-lr config in f32 and
    bf16; the pxy step gray and colored in f32; the rp step gray and
-   colored in f32 and gray in bf16;
+   colored in f32 and gray in bf16; then the chained engine (one CUDA
+   graph of the step, replayed) against the per-step engine on the card,
+   ``run_epochs`` for 8 steps at batch 128 with events every 4, for
+   CelebA f32, pxy gray and rp gray and colored
+   (``tools/chain_check.py``: cuDNN deterministic, two per-step runs and
+   the chained one bit-equal in every logged loss and event batch, the
+   warp counted per replay); and the warp's launches counted per replay
+   by its wrapper held against the warp kernels the CUPTI trace of a
+   window of 32 replayed gray rp steps shows;
 4. the main paths, each with its kernel's launch count set to 0 just
-   before and read just after, and the warp's count held exactly: the
-   CelebA trainer, ``python -m eadgan_tpu_torch.cli.celeba --batch_size
-   128 --max_steps 20`` in f32 on synthetic data, saving a train state at
-   step 0 (mid-epoch), then ``--resume auto --compute bf16`` continuing it
-   to the planned total; the dSprites pipeline on synthetic sprites at
-   batch 128, ``cli.pxy`` (20 steps, 1 warp a step + 1 for the step-0
+   before and read just after, and the warp's count held exactly (a
+   replayed step counts the launches its capture recorded): the CelebA
+   trainer, ``python -m eadgan_tpu_torch.cli.celeba --batch_size 128
+   --max_steps 20`` at its default ``--chain 32`` in f32 on synthetic
+   data, saving a train state at step 0 (mid-epoch), then ``--resume
+   auto --compute bf16 --chain 1`` continuing it per step to the planned
+   total; the dSprites pipeline on synthetic sprites at batch 128,
+   chained, ``cli.pxy`` (20 steps, 1 warp a step + 1 for the step-0
    grid), ``cli.rp --encoder_pxy`` on its file (20 steps, 3 warps a step
-   + 2 for the grid), ``cli.rp --resume auto --compute bf16`` to the
-   planned total, then ``cli.pxy_color`` and ``cli.rp_color`` (10 steps
-   each); and the fused conv's probe, ``python -m
-   eadgan_tpu_torch.tools.fused_conv_probe`` at its defaults, whose
-   record gives the fused conv's kernel and library times;
+   + 2 for the grid), ``cli.rp --resume auto --compute bf16 --chain 1``
+   to the planned total, ``cli.pxy_color`` and ``cli.rp_color`` (10 steps
+   each), and a longer chained ``cli.rp`` on ``EADGAN_SYNTH_POS=8`` (30
+   batches an epoch, 90 steps) with ``EADGAN_CHAIN_TRACE``; and the fused
+   conv's probe, ``python -m eadgan_tpu_torch.tools.fused_conv_probe`` at
+   its defaults, whose record gives the fused conv's kernel and library
+   times;
 5. timing with CUDA events: the B=128 CelebA step in f32 and in bf16 and
    the rp step gray f32, gray bf16 and colored f32 (with images/s and the
-   warp's share), the warp beside its bound, its plain version and the
-   library call that computes the same function at (128, 64, 64, 3) and
-   at (128, 64, 64, 1) in both paddings, and the fused conv's plain
-   version, bound and host cost per call.
+   warp's share), each per step and replayed (windows of 32 replays,
+   each gathering its batch on the card from the resident uint8 dataset
+   as the CLIs' graph does, after the eager step and the capture), the
+   warp beside its bound, its
+   plain version and the library call that computes the same function at
+   (128, 64, 64, 3) and at (128, 64, 64, 1) in both paddings, and the
+   fused conv's plain version, bound and host cost per call.
 
 Its last lines are the ``{"kernels": [...]}`` record, the ``nvidia-smi``
 name/power-limit line, and ``{"ok": true, "device": {...}}``.
@@ -378,6 +393,28 @@ def phase_step_parity_dsprites(torch):
             _check_step_losses(label, compute, s, losses)
 
 
+CHAIN_CHECKS = ("celeba", "pxy", "rp", "rp_color")
+
+
+def phase_chain_parity(torch):
+    """The chained engine against the per-step engine on the card; then
+    the warp's launches under replay, as its wrapper counts them against
+    the CUPTI trace of a window of gray rp replays."""
+    from eadgan_tpu_torch.tools.chain_check import run_check
+    from eadgan_tpu_torch.utils.profiler import profile_step
+
+    for pipeline in CHAIN_CHECKS:
+        report = run_check(pipeline, steps=8, chain=4, batch=128)
+        emit(report)
+        check(report["ok"], f"chained {pipeline} engine against the per-step engine: {report}")
+    summary, _ = profile_step("rp", chain=CHAIN_WINDOW)
+    emit({"replayed_profile": {k: v for k, v in summary.items() if k != "top_kernels"},
+          "top_kernels": summary["top_kernels"][:5]})
+    check(summary["kernels_in_trace"], "the trace of the replayed rp steps shows no kernel")
+    counted = summary["warp_launches_per_step"], summary["warp_kernels_in_trace_per_step"]
+    check(counted == (3, 3), f"warp launches a replayed rp step, counted and traced: {counted}")
+
+
 @contextlib.contextmanager
 def environ(**values):
     saved = {k: os.environ.get(k) for k in values}
@@ -411,18 +448,40 @@ def read_records(path, keys=("d_loss", "g_loss")):
 
 
 def loop_ms(records) -> float:
-    """Median host clock between consecutive log records from step 2 on:
-    one loop step (the step, the batch's gather and its copy to the
-    card), past step 0's sample grids and saves."""
+    """Per-step runs: median host clock between consecutive log records
+    from step 2 on: one loop step (the step, the batch's gather and its
+    copy to the card), past step 0's sample grids and saves."""
     ts = [r["t"] for r in records]
     return statistics.median(b - a for a, b in zip(ts[2:], ts[3:])) * 1e3
 
 
+def chained_loop_ms(trace_path) -> dict:
+    """Chained runs, from their ``EADGAN_CHAIN_TRACE`` records (one a
+    window; iter + disp + drain + cb is the host time between two window
+    ends).  A window ends after the previous window's metrics came back,
+    so the time between window ends j - 1 and j holds the device work of
+    window j - 1: the loop step is the time from the end of the second
+    window (the first is the eager step with its grids and saves, the
+    second the capture) to the end of the last, over the steps of the
+    windows from the second to the last but one.  Also the phases' sums
+    over those intervals, over the same steps, in ms."""
+    windows = [json.loads(line) for line in open(trace_path)]
+    check(len(windows) >= 3, f"{trace_path}: fewer than three windows")
+    phases = ("iter", "disp", "drain", "cb")
+    timed, steps = windows[2:], sum(w["k"] for w in windows[1:-1])
+    return {
+        "loop_step_ms_host_clock": sum(w[p] for w in timed for p in phases) / steps * 1e3,
+        "timed_windows": len(timed), "timed_steps": steps,
+        "trace_ms_per_step": {p: sum(w[p] for w in timed) / steps * 1e3 for p in phases},
+    }
+
+
 def phase_trainer(torch):
-    """The trainer: 20 f32 steps (4 epochs of 5 batches, the planned
-    total), sample grids and a train state saved at step 0 only, then
-    ``--resume auto --compute bf16`` continuing from step 1, inside epoch
-    0, to the planned total."""
+    """The trainer at its default ``--chain 32``: 20 f32 steps (4 epochs
+    of 5 batches, the planned total), sample grids and a train state saved
+    at step 0 only, the warp launched exactly once a step plus once for
+    the grid; then ``--resume auto --compute bf16 --chain 1`` continuing
+    per step from step 1, inside epoch 0, to the planned total."""
     from eadgan_tpu_torch.ops import stn_cuda
     from eadgan_tpu_torch.train.checkpoint import saved_steps
 
@@ -436,14 +495,17 @@ def phase_trainer(torch):
             "--out_dir", os.path.join(tmp, "images"), "--ckpt_dir", tmp, "--keep_states", "1",
         ]
         jsonl = os.path.join(tmp, "metrics.jsonl")
+        trace = os.path.join(tmp, "chain_trace.jsonl")
         # one sample interval is the whole run: grids, the checkpoint and
         # the train state are written at step 0 only
         stn_cuda.reset_launch_count()  # counts from here read the main path only
         t0 = time.perf_counter()
-        run_module(torch, module, common + ["--max_steps", str(total), "--sample_interval",
-                                            str(total), "--jsonl", jsonl])
+        with environ(EADGAN_CHAIN_TRACE=trace):
+            run_module(torch, module, common + ["--max_steps", str(total), "--sample_interval",
+                                                str(total), "--jsonl", jsonl])
         wall = time.perf_counter() - t0
         launches = stn_cuda.launch_count
+        chained = chained_loop_ms(trace)
 
         records = read_records(jsonl)
         check([r["step"] for r in records] == list(range(total)), "f32 trainer steps")
@@ -458,7 +520,7 @@ def phase_trainer(torch):
 
         jsonl2 = os.path.join(tmp, "resumed.jsonl")
         t0 = time.perf_counter()
-        run_module(torch, module, common + ["--resume", "auto", "--compute", "bf16",
+        run_module(torch, module, common + ["--resume", "auto", "--compute", "bf16", "--chain", "1",
                                             "--sample_interval", "1000", "--jsonl", jsonl2])
         resume_wall = time.perf_counter() - t0
         resumed = read_records(jsonl2)
@@ -466,11 +528,10 @@ def phase_trainer(torch):
         # batches run, then 3 whole epochs, ending at the planned total
         check([r["step"] for r in resumed] == list(range(1, total)),
               f"resumed steps {[r['step'] for r in resumed]}")
-    check(launches >= total, f"warp kernel launched {launches} times in {total} steps")
-    emit({"trainer": module, "batch_size": 128, "steps": total, "compute": "f32",
-          "wall_s": wall, "loop_step_ms_host_clock": loop_ms(records), "warp_launches": launches,
-          "last": records[-1]})
-    emit({"trainer_resumed": module, "compute": "bf16", "from_step": 1,
+    check(launches == total + 1, f"warp kernel launched {launches} times in {total} steps + 1 grid")
+    emit({"trainer": module, "batch_size": 128, "steps": total, "compute": "f32", "chain": 32,
+          "wall_s": wall, **chained, "warp_launches": launches, "last": records[-1]})
+    emit({"trainer_resumed": module, "compute": "bf16", "chain": 1, "from_step": 1,
           "steps": [r["step"] for r in resumed], "wall_s": resume_wall,
           "loop_step_ms_host_clock": loop_ms(resumed), "last": resumed[-1]})
     return {"warp_affine": launches}
@@ -478,16 +539,20 @@ def phase_trainer(torch):
 
 RP_KEYS = ("d_loss", "g_loss", "cat_loss", "cont_loss", "affine_loss", "relative_cat_loss")
 RP_STEPS, RP_GRID_WARPS = 20, 2  # the gray rp run: steps, and the step-0 grid's warps
+RP_LONG_STEPS = 90  # the chained rp run on 3,840 sprites: 3 epochs of 30 batches
 
 
 def phase_dsprites_trainers(torch):
     """The dSprites pipeline through its four CLIs at batch 128 on
-    synthetic sprites (540 images, 4 batches an epoch): each run's warp
-    launches are counted from 0 and must be exactly one per pxy step and
-    three per rp step, plus the step-0 grid's (pxy: one align; rp: one
-    align and one distort).  The gray rp run saves its train state at
-    step 0 and the bf16 run resumes it to the planned total (5 epochs,
-    20 steps).  Returns the launches by run."""
+    synthetic sprites (540 images, 4 batches an epoch), at the default
+    ``--chain 32``: each run's warp launches are counted from 0 and must
+    be exactly one per pxy step and three per rp step, plus the step-0
+    grid's (pxy: one align; rp: one align and one distort).  The gray rp
+    run saves its train state at step 0 and the bf16 run resumes it per
+    step (``--chain 1``) to the planned total (5 epochs, 20 steps).  Then
+    a longer chained gray rp run on ``EADGAN_SYNTH_POS=8`` (3,840
+    sprites, 30 batches an epoch, 3 epochs), whose windows the epoch ends
+    clamp less.  Returns the launches by run."""
     from eadgan_tpu_torch.ops import stn_cuda
     from eadgan_tpu_torch.train.checkpoint import saved_steps
 
@@ -497,11 +562,13 @@ def phase_dsprites_trainers(torch):
 
         def run(label, module, steps, per_step, grid, argv, keys, first=0):
             jsonl = os.path.join(tmp, f"{label}.jsonl")
+            trace = os.path.join(tmp, f"{label}_chain_trace.jsonl")
             stn_cuda.reset_launch_count()  # counts from here read this run only
             t0 = time.perf_counter()
-            run_module(torch, module, ["--batch_size", "128", "--data_dir", tmp,
-                                       "--out_dir", os.path.join(tmp, label), "--ckpt_dir", tmp,
-                                       "--jsonl", jsonl, *argv])
+            with environ(EADGAN_CHAIN_TRACE=trace):
+                run_module(torch, module, ["--batch_size", "128", "--data_dir", tmp,
+                                           "--out_dir", os.path.join(tmp, label), "--ckpt_dir", tmp,
+                                           "--jsonl", jsonl, *argv])
             wall = time.perf_counter() - t0
             records = read_records(jsonl, keys)
             check([r["step"] for r in records] == list(range(first, first + steps)),
@@ -510,10 +577,12 @@ def phase_dsprites_trainers(torch):
             check(stn_cuda.launch_count == want,
                   f"{label}: warp launched {stn_cuda.launch_count} times, expected {want}")
             launches[label] = stn_cuda.launch_count
+            chained = "--chain" not in argv
+            loop = chained_loop_ms(trace) if chained else {
+                "loop_step_ms_host_clock": loop_ms(records)}
             out.append({"trainer": module, "run": label, "batch_size": 128, "steps": steps,
-                        "warp_launches": stn_cuda.launch_count, "expected_launches": want,
-                        "wall_s": wall, "loop_step_ms_host_clock": loop_ms(records),
-                        "last": records[-1]})
+                        "chain": 32 if chained else 1, "warp_launches": stn_cuda.launch_count,
+                        "expected_launches": want, "wall_s": wall, **loop, "last": records[-1]})
 
         def grids(label, names):
             for name in names:
@@ -536,8 +605,8 @@ def phase_dsprites_trainers(torch):
         check(saved_steps(tmp, "rp_train_state") == [0], "rp train state")
         # step 1 is inside epoch 0: its 3 remaining batches, then 4 epochs
         run("rp_resumed_bf16", "eadgan_tpu_torch.cli.rp", RP_STEPS - 1, 3, 0,
-            rp_args + ["--resume", "auto", "--compute", "bf16", "--sample_interval", "1000"],
-            RP_KEYS, first=1)
+            rp_args + ["--resume", "auto", "--compute", "bf16", "--chain", "1",
+                       "--sample_interval", "1000"], RP_KEYS, first=1)
 
         run("pxy_color", "eadgan_tpu_torch.cli.pxy_color", 10, 1, 1,
             ["--max_steps", "10", "--sample_interval", "10"], ["affine_loss"])
@@ -546,6 +615,12 @@ def phase_dsprites_trainers(torch):
         run("rp_color", "eadgan_tpu_torch.cli.rp_color", 10, 3, 2,
             ["--encoder_pxy", color_file, "--max_steps", "10", "--sample_interval", "10"], RP_KEYS)
         grids("rp_color", rp_grids)
+
+        with environ(EADGAN_SYNTH_POS="8"):
+            long_dir = os.path.join(tmp, "long")
+            run("rp_long", "eadgan_tpu_torch.cli.rp", RP_LONG_STEPS, 3, RP_GRID_WARPS,
+                ["--encoder_pxy", pxy_file, "--n_epochs", "3", "--sample_interval", "1000",
+                 "--data_dir", long_dir, "--ckpt_dir", long_dir], RP_KEYS)
     for record in out:
         emit(record)
     return launches
@@ -579,15 +654,22 @@ def bound(bytes_moved, flops, flops_per_s):
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
 
+CHAIN_WINDOW = 32  # replays in a timed window of the chained step
+
+
 def time_step(torch, pipeline, compute, dtype):
     """One pipeline's train step at B=128 by CUDA events: the median of
     30 single steps after 5 warm-up steps, with the warp's launches a
-    step counted over those 30."""
+    step counted over those 30; then the same step chained, gathering
+    its batch on the card: after its eager step and the capture (and the
+    rest of that window), two windows of 32 replays, each timed by CUDA
+    events, the median over 32, with the warp's launches a replay."""
     from eadgan_tpu_torch.ops import stn_cuda
-    from eadgan_tpu_torch.utils.profiler import build_step
+    from eadgan_tpu_torch.utils.profiler import build_step, chained_replays, first_batch
 
     batch = 128
-    state, step, imgs = build_step(pipeline, batch, dtype)
+    state, step, data, prep = build_step(pipeline, batch, dtype)
+    imgs = first_batch(data, prep, batch)
     for _ in range(5):
         step(state, imgs)
     torch.cuda.synchronize()
@@ -609,7 +691,31 @@ def time_step(torch, pipeline, compute, dtype):
               "mean_ms_host_clock": host_ms, "img_per_s": batch / step_ms * 1e3,
               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "samples": 30,
               "warp_launches_per_step": (stn_cuda.launch_count - warp_before) / 30}
-    del state
+
+    torch.cuda.reset_peak_memory_stats()  # the graph's pool is allocated at capture
+    run = chained_replays(state, step, data, prep, batch, CHAIN_WINDOW)
+    torch.cuda.synchronize()
+    windows = []
+    warp_before = stn_cuda.launch_count
+    t0 = time.perf_counter()
+    for _ in range(2):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        _, packed = run()
+        end.record()
+        windows.append((start, end))
+    torch.cuda.synchronize()
+    chained_host_ms = (time.perf_counter() - t0) * 1e3 / (2 * CHAIN_WINDOW)
+    chained_ms = statistics.median(s.elapsed_time(e) for s, e in windows) / CHAIN_WINDOW
+    check(bool(torch.isfinite(packed).all()), f"chained {pipeline} metrics {packed[-1]}")
+    record.update({
+        "chained_ms_cuda_events": chained_ms, "chained_mean_ms_host_clock": chained_host_ms,
+        "chained_img_per_s": batch / chained_ms * 1e3, "chained_window": CHAIN_WINDOW,
+        "chained_peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "chained_warp_launches_per_step": (stn_cuda.launch_count - warp_before) / (2 * CHAIN_WINDOW),
+        "per_step_over_chained": step_ms / chained_ms,
+    })
+    del state, run
     return record
 
 
@@ -687,6 +793,8 @@ def phase_timing(torch, errs, probe):
             one = warp if record["step"].startswith("rp_color") else warp_c1
             record["warp_share_of_step"] = (record["warp_launches_per_step"] * one["ms"]
                                             / record["median_ms_cuda_events"])
+            record["chained_warp_share_of_step"] = (record["chained_warp_launches_per_step"]
+                                                    * one["ms"] / record["chained_ms_cuda_events"])
         emit(record)
     warp_kernel = {
         "name": "warp_affine",
@@ -748,9 +856,11 @@ def main() -> None:
     phase_environment(torch)
     print("== phase 2: kernels vs plain versions on the card", flush=True)
     errs = phase_kernel_vs_plain(torch)
-    print("== phase 3: train steps, CPU vs CUDA (CelebA; dSprites pxy and rp)", flush=True)
+    print("== phase 3: train steps, CPU vs CUDA (CelebA; dSprites pxy and rp), chained vs per step",
+          flush=True)
     phase_step_parity(torch)
     phase_step_parity_dsprites(torch)
+    phase_chain_parity(torch)
     print("== phase 4: main paths (the CelebA and dSprites trainers, then the fused conv's probe)",
           flush=True)
     warp_by_path = {"celeba": phase_trainer(torch)["warp_affine"], **phase_dsprites_trainers(torch)}

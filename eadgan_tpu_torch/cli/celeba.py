@@ -123,6 +123,8 @@ def main(argv=None) -> None:
         scale=1.0 / 127.5,
         shift=-1.0,
         random_flip=True,
+        chain=opt.chain,
+        chain_periods=(config.sample_interval, config.sample_interval * 15),
     )
 
 

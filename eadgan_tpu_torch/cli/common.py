@@ -3,9 +3,9 @@
 PyTorch counterpart of part of ``eadgan_tpu/cli/common.py``.  The device
 is chosen by ``utils.device.platform_device`` (``EADGAN_PLATFORM=cpu``
 for the CPU, the CUDA card otherwise).  The flags whose machinery
-belongs to later slices of the port (``--chain``, ``--data_parallel``,
-``--zero_opt``, ``--watchdog``, ``--preempt_save``, ``--profile_dir``,
-``--no_download``) are not defined, so argparse rejects them.
+belongs to later slices of the port (``--data_parallel``, ``--zero_opt``,
+``--watchdog``, ``--preempt_save``, ``--profile_dir``, ``--no_download``)
+are not defined, so argparse rejects them.
 """
 
 from __future__ import annotations
@@ -48,12 +48,26 @@ def add_run_args(parser: argparse.ArgumentParser) -> None:
         "damaged. Reference-contract model files (checkpoint_*.tar) are never pruned",
     )
     parser.add_argument(
+        "--chain", type=_positive_int, default=32,
+        help="train steps per window: on the card, the step is captured once as a CUDA graph "
+        "and each window replays it this many times (up to the next sample/checkpoint step), "
+        "gathering every batch on the card from the resident uint8 dataset; 1 = one eagerly "
+        "launched step per batch, gathered on the host (debugging)",
+    )
+    parser.add_argument(
         "--compute", choices=["bf16", "f32"], default="f32",
         help="model compute type; parameters, BatchNorm statistics and spectral-norm state "
         "stay float32 either way. The warp runs on the float32 real batch and accumulates "
         "in float32 in both modes (the JAX package's EADGAN_WARP_PRECISION=fast selects "
         "TPU matrix-unit passes and has no counterpart here)",
     )
+
+
+def _positive_int(text: str) -> int:
+    value = int(text)
+    if value < 1:
+        raise argparse.ArgumentTypeError(f"must be >= 1, got {value}")
+    return value
 
 
 def resolve_compute_dtype(opt):

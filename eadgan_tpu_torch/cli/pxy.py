@@ -99,6 +99,8 @@ def main(argv=None, colored: bool = False) -> None:
         max_steps=opt.max_steps,
         logger=logger,
         metric_keys=["affine_loss"],
+        chain=opt.chain,
+        chain_periods=(config.sample_interval, save_every),
     )
 
 

@@ -137,6 +137,8 @@ def main(argv=None, colored: bool = False) -> None:
         max_steps=opt.max_steps,
         logger=logger,
         metric_keys=list(METRIC_KEYS),
+        chain=opt.chain,
+        chain_periods=(config.sample_interval * 2, save_every),
     )
 
 

@@ -12,7 +12,10 @@ correct one is given all the same, as autograd through the plain version
 (``ops/stn.py``), mirroring the JAX kernel's ``_bwd``.
 
 ``launch_count`` counts kernel launches, so a run can show that its main
-path went through the kernel.
+path went through the kernel.  A call made while the stream is being
+captured into a CUDA graph records the kernel and launches nothing: it
+adds to ``captured_count`` instead, and whoever replays the graph counts
+the launches of each replay with :func:`count_replayed`.
 """
 
 from __future__ import annotations
@@ -22,9 +25,11 @@ import torch
 from eadgan_tpu_torch.ops import _build
 from eadgan_tpu_torch.ops.stn import PADDING_MODES, warp_affine_plain
 
-__all__ = ["warp_affine_cuda", "launch_count", "reset_launch_count"]
+__all__ = ["warp_affine_cuda", "launch_count", "captured_count", "reset_launch_count",
+           "count_replayed"]
 
 launch_count = 0
+captured_count = 0
 
 _ENTRY = {torch.float32: "eadgan_warp_affine_f32", torch.bfloat16: "eadgan_warp_affine_bf16"}
 
@@ -32,6 +37,12 @@ _ENTRY = {torch.float32: "eadgan_warp_affine_f32", torch.bfloat16: "eadgan_warp_
 def reset_launch_count() -> None:
     global launch_count
     launch_count = 0
+
+
+def count_replayed(launches: int) -> None:
+    """Count ``launches`` kernel launches made by replaying CUDA graphs."""
+    global launch_count
+    launch_count += launches
 
 
 def _check(img: torch.Tensor, matrix: torch.Tensor, padding_mode: str) -> None:
@@ -61,7 +72,7 @@ def _check(img: torch.Tensor, matrix: torch.Tensor, padding_mode: str) -> None:
 def _launch(img: torch.Tensor, matrix: torch.Tensor, padding_mode: str) -> torch.Tensor:
     """One kernel launch; ``matrix`` is a contiguous (N, 3, 3) or (N, 2, 3)
     float32 tensor, whose top two rows the kernel reads in place."""
-    global launch_count
+    global launch_count, captured_count
     out = torch.empty_like(img)
     n, h, w, c = img.shape
     if out.numel() == 0:
@@ -75,7 +86,10 @@ def _launch(img: torch.Tensor, matrix: torch.Tensor, padding_mode: str) -> torch
         )
     if err != 0:
         raise RuntimeError(f"warp_affine kernel launch failed: CUDA error {err}")
-    launch_count += 1
+    if torch.cuda.is_current_stream_capturing():
+        captured_count += 1
+    else:
+        launch_count += 1
     return out
 
 

@@ -1,0 +1,311 @@
+"""Chained training: windows of up to K steps replayed from one CUDA graph.
+
+PyTorch counterpart of ``eadgan_tpu/train/chain.py``.  The JAX package
+chains K steps into one ``lax.scan`` program so that one dispatch round
+trip serves K steps.  On the card the host's cost is issuing the step's
+~2,750 kernel launches one by one, so the counterpart here is one
+``torch.cuda.CUDAGraph`` of the train step, captured once per run and
+replayed K times per window:
+
+- the dataset stays resident on the card as uint8, and each step's
+  batch is gathered, flipped and normalized inside the graph
+  (:func:`normalize_prepare`), from int32 row indices copied in once a
+  window;
+- the step's metrics are packed into one (M,) float32 tensor, copied
+  into row i of a (K, M) window buffer after replay i, so a window
+  returns its metrics in one tensor;
+- the window planner (:func:`plan_windows`, a copy of the JAX one) puts
+  every sample/checkpoint step at the end of a window, where the
+  engine runs the side effects.
+
+On the CPU the same windows, gather and packed metrics run with the
+step called eagerly K times; that path exists only because the caller
+asked for the CPU.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Iterator, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from eadgan_tpu_torch.ops import _build, stn_cuda
+
+__all__ = [
+    "ChainedStep",
+    "make_chained_step",
+    "plan_windows",
+    "normalize_prepare",
+    "gather_prepare",
+    "LazyLastMetrics",
+    "LazyHostBatch",
+]
+
+
+class ChainedStep:
+    """``chained(state, consts, *windows) -> (state, packed)``: run one
+    step per row of the windows (each with a leading axis K) and return
+    the (K, M) float32 metrics, in the order of ``resolved_pack_keys``.
+
+    ``body(state, *batch) -> (state, metrics)`` is the train step, which
+    updates ``state`` in place; ``prepare(consts, *rows)`` turns one row
+    of each window into the step's batch (None: the rows are the batch).
+
+    On a CUDA card the first step this object runs is eager: it is a
+    real step of the schedule and creates the optimizers' state and the
+    libraries' handles before capture.  The next step that needs running
+    captures prepare, body and the packing of the metrics as one
+    ``torch.cuda.CUDAGraph``; every step after that is a replay of it:
+    the row's inputs are copied into the graph's static inputs on the
+    card, the graph replays, and its metrics are copied into the window's
+    row.  The ``generators`` the body draws from are registered with the
+    graph, so each replay draws the next values of the same Philox stream
+    that an eager step would.  The graph's memory is one step's; one
+    graph serves every window length.  Capture that fails raises; there
+    is no fall back to eager steps.
+
+    The host's step counter (``state.step += 1`` in the bodies) moves
+    once at capture and never on replay: the caller sets it after each
+    window.  The warp kernel's launches recorded by the capture are
+    counted after each replay (``stn_cuda.count_replayed``).
+    """
+
+    def __init__(self, body: Callable, prepare: Optional[Callable] = None,
+                 pack_keys="auto", generators: Sequence[torch.Generator] = ()):
+        self.body = body
+        self.prepare = prepare
+        self.pack_keys = pack_keys
+        self.generators = tuple(generators)
+        self.resolved_pack_keys: list = []
+        self.graph = None
+        self.warmed = False  # the first step ran eagerly
+        self.captured_warps = 0  # warp launches one replay runs
+        self._static_in = None
+        self._static_out = None
+
+    def _step(self, state, consts, rows):
+        batch = self.prepare(consts, *rows) if self.prepare is not None else tuple(rows)
+        if not isinstance(batch, tuple):
+            batch = (batch,)
+        state, metrics = self.body(state, *batch)
+        if not self.resolved_pack_keys:
+            keys = sorted(metrics) if self.pack_keys == "auto" else self.pack_keys
+            self.resolved_pack_keys.extend(keys)
+        packed = torch.stack([metrics[k].to(torch.float32) for k in self.resolved_pack_keys])
+        return state, packed
+
+    def _capture(self, state, consts, windows) -> None:
+        if not hasattr(torch.cuda.CUDAGraph, "register_generator_state"):
+            raise RuntimeError(
+                f"torch {torch.__version__} has no CUDAGraph.register_generator_state: "
+                "the chained engine cannot replay the step's draws (use --chain 1)"
+            )
+        _build.load_library()  # nvcc runs at first use: never inside a capture
+        self._static_in = [w[0].clone() for w in windows]
+        graph = torch.cuda.CUDAGraph()
+        for gen in self.generators:
+            graph.register_generator_state(gen)
+        before = stn_cuda.captured_count
+        with torch.cuda.graph(graph):
+            _, self._static_out = self._step(state, consts, self._static_in)
+        self.captured_warps = stn_cuda.captured_count - before
+        self.graph = graph
+
+    def __call__(self, state, consts, *windows):
+        k = windows[0].shape[0]
+        if not windows[0].is_cuda:
+            rows = []
+            for i in range(k):
+                state, packed = self._step(state, consts, [w[i] for w in windows])
+                rows.append(packed)
+            return state, torch.stack(rows)
+        first = 0
+        if not self.warmed:
+            state, eager = self._step(state, consts, [w[0] for w in windows])
+            self.warmed = True
+            first = 1
+        if first < k and self.graph is None:
+            self._capture(state, consts, windows)
+        out = torch.empty((k, len(self.resolved_pack_keys)), device=windows[0].device)
+        if first:
+            out[0].copy_(eager)
+        for i in range(first, k):
+            for static, w in zip(self._static_in, windows):
+                static.copy_(w[i])
+            self.graph.replay()
+            stn_cuda.count_replayed(self.captured_warps)
+            out[i].copy_(self._static_out)
+        return state, out
+
+
+def make_chained_step(body: Callable, prepare: Optional[Callable] = None,
+                      pack_keys="auto", generators: Sequence[torch.Generator] = ()) -> ChainedStep:
+    """A :class:`ChainedStep` of ``body``.  ``pack_keys``: an ordered
+    metric-name sequence, or ``"auto"`` for every metric the body emits
+    in sorted order (resolved at the first step, then exposed as
+    ``resolved_pack_keys``)."""
+    return ChainedStep(body, prepare, pack_keys, generators)
+
+
+def normalize_prepare(scale: float, shift: float, flip: bool = False,
+                      add_channel: bool = False):
+    """The step's batch gathered from the dataset resident on the card,
+    in the JAX function's op order (its ``gather=True`` form): ``consts =
+    (dataset,)`` is the uint8 dataset and a row carries int32 indices
+    (``index_select``).  With ``flip``, a bool mask row mirrors those
+    images along the width while still uint8 (``torch.where``, no host
+    sync), after the channel axis of 2-D images is added; then
+    ``x.float() * scale + shift`` in float32.  Without flip the channel
+    axis comes last.  The values equal the per-step engine's host batches
+    (``train/engine.py::epoch_batches``) bit for bit: a flip permutes
+    pixels, and both compute one float32 multiply then one add."""
+
+    if flip:
+
+        def prep(consts, idx, mask):
+            x = torch.index_select(consts[0], 0, idx)
+            if add_channel:
+                x = x[..., None]
+            x = torch.where(mask[:, None, None, None], x.flip(2), x)
+            return (x.float() * scale + shift,)
+
+    else:
+
+        def prep(consts, idx):
+            img = torch.index_select(consts[0], 0, idx).float() * scale + shift
+            if add_channel:
+                img = img[..., None]
+            return (img,)
+
+    return prep
+
+
+def gather_prepare():
+    """Prepare for datasets resident on the card whole (``consts`` holds
+    the arrays): a row carries int32 indices, and the batch is one
+    ``index_select`` from each array."""
+
+    def prep(consts, idx):
+        return tuple(torch.index_select(c, 0, idx) for c in consts)
+
+    return prep
+
+
+def plan_windows(
+    start: int,
+    count: int,
+    chain: int,
+    periods: Sequence[int] = (),
+    stop: Optional[int] = None,
+) -> Iterator[Tuple[int, int]]:
+    """Yield ``(global_start_index, k)`` windows covering step indices
+    ``[start, start + count)``.
+
+    Every index ``e`` with ``e % p == 0`` for any period ``p`` (the
+    sample / checkpoint intervals whose side effects need the exact
+    post-step state) is forced to be the LAST index of its window; ``k``
+    never exceeds ``chain`` and never crosses ``stop`` (the absolute
+    max-steps bound).  With all periods equal to 1 this degenerates to
+    k=1 per window — the per-step debugging path.
+
+    Emitted ``k`` are always POWERS OF TWO, as in the JAX package, where
+    each distinct window length is a separate compile; one CUDA graph
+    serves every length here, but the same plan gives the same window
+    ends, and so the same event steps, as the JAX engine.  Shrinking a
+    window never crosses an event index (k only decreases), so the
+    event-at-window-end invariant is preserved.
+    """
+    if chain < 1:
+        raise ValueError(f"chain must be >= 1, got {chain}")
+    s = start
+    end = start + count
+    if stop is not None:
+        end = min(end, stop)
+    periods = [p for p in periods if p and p > 0]
+    while s < end:
+        k = min(chain, end - s)
+        for p in periods:
+            # smallest event index >= s under period p
+            e = s if s % p == 0 else s + (p - s % p)
+            if e < s + k:
+                k = e - s + 1
+        k = 1 << (k.bit_length() - 1)  # largest power of two <= k
+        yield s, k
+        s += k
+
+
+class LazyLastMetrics:
+    """Dict-like view of the LAST step's metrics in a packed (K, M)
+    tensor.  Most windows never read per-step metrics (the logger gets
+    the window's host copy), so nothing is fetched until a key is read;
+    the first access copies the whole packed tensor to the host once and
+    caches its last row."""
+
+    def __init__(self, keys: Sequence[str], packed: torch.Tensor):
+        self._keys = tuple(keys)
+        self._packed = packed
+        self._row = None
+
+    def _fetch(self):
+        if self._row is None:
+            self._row = self._packed.detach().cpu().numpy()[-1]
+        return self._row
+
+    def __getitem__(self, key):
+        if key not in self._keys:
+            raise KeyError(key)  # dict parity with the per-step engine
+        return self._fetch()[self._keys.index(key)]
+
+    def __contains__(self, key):
+        return key in self._keys
+
+    def __iter__(self):
+        return iter(self._keys)
+
+    def __len__(self):
+        return len(self._keys)
+
+    def get(self, key, default=None):
+        return self._fetch()[self._keys.index(key)] if key in self._keys else default
+
+    def keys(self):
+        return self._keys
+
+    def values(self):
+        row = self._fetch()
+        return [row[i] for i in range(len(self._keys))]
+
+    def items(self):
+        row = self._fetch()
+        return [(k, row[i]) for i, k in enumerate(self._keys)]
+
+
+class LazyHostBatch:
+    """A window's last batch, made only if ``on_batch`` touches it
+    (``fn()`` builds it once)."""
+
+    def __init__(self, fn: Callable):
+        self._fn = fn
+        self._value = None
+
+    def _get(self):
+        if self._value is None:
+            self._value = self._fn()
+        return self._value
+
+    def __getitem__(self, item):
+        return self._get()[item]
+
+    def __array__(self, dtype=None, copy=None):
+        value = self._get()
+        arr = value.detach().cpu().numpy() if isinstance(value, torch.Tensor) else np.asarray(value)
+        return arr.astype(dtype) if dtype is not None else arr
+
+    @property
+    def shape(self):
+        return self._get().shape
+
+    @property
+    def dtype(self):
+        return self._get().dtype

@@ -114,11 +114,31 @@ def _payload(state) -> Dict[str, Any]:
     return out
 
 
+def _load_optimizer(opt: torch.optim.Optimizer, saved: Dict[str, Any]) -> None:
+    """``opt.load_state_dict(saved)``, keeping ``opt``'s own ``capturable``
+    setting: ``load_state_dict`` takes the saved groups' settings, so a
+    file written on the card (capturable Adam, the step count on the
+    card) would otherwise leave a CPU optimizer capturable, and a CPU
+    file a card optimizer unfit for graph replay.  The step counts go
+    where each group wants them: on its parameters' device as float32
+    when capturable, on the CPU otherwise."""
+    capturable = [group.get("capturable", False) for group in opt.param_groups]
+    opt.load_state_dict(saved)
+    for group, keep in zip(opt.param_groups, capturable):
+        group["capturable"] = keep
+        for p in group["params"]:
+            st = opt.state.get(p, {})
+            if "step" in st:
+                st["step"] = st["step"].to(torch.float32).to(p.device if keep else "cpu")
+
+
 def _apply(state, payload: Dict[str, Any]):
     """Load a train-state payload into ``state`` in place; returns it."""
     for name, value in _fields(state).items():
-        if isinstance(value, (nn.Module, torch.optim.Optimizer)):
+        if isinstance(value, nn.Module):
             value.load_state_dict(payload[name])
+        elif isinstance(value, torch.optim.Optimizer):
+            _load_optimizer(value, payload[name])
         elif isinstance(value, torch.Generator):
             value.set_state(payload[name])
         else:

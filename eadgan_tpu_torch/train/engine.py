@@ -1,29 +1,49 @@
-"""Training engine: the epoch/batch loop a trainer runs its step under.
+"""Training engines: the epoch/batch loops a trainer runs its step under.
 
-PyTorch counterpart of the single-device path of
-``eadgan_tpu/train/engine.py``.  It draws the same epoch permutations from
-``np.random.default_rng(seed)`` and the same per-batch flip masks from
-``np.random.default_rng([seed, 0x464C4950])``, one draw per batch in
-batch order, so both packages feed their steps the same batches.
-Batches are gathered, normalized and flipped in numpy on the host, then
-copied to the device.
+PyTorch counterpart of the single-device paths of
+``eadgan_tpu/train/engine.py``.  Both engines draw the same epoch
+permutations from ``np.random.default_rng(seed)`` and the same per-batch
+flip masks from ``np.random.default_rng([seed, 0x464C4950])``, one draw
+per batch in batch order, so both packages feed their steps the same
+batches:
+
+* the **per-step engine** (``chain=1``) gathers, normalizes and flips
+  each batch in numpy on the host, copies it to the device and calls
+  the step;
+* the **chained engine** (``chain > 1``, the CLIs' default) runs windows
+  of up to ``chain`` steps through ``train/chain.py``: on the card, one
+  CUDA graph of the step replayed per step, each batch gathered on the
+  card from the resident uint8 dataset; side effects run at the window
+  ends that ``plan_windows`` puts on the event steps.
 
 A run resumed at a step inside an epoch starts from fresh generators, as
 the JAX engines do: the resumed epoch draws a fresh permutation and runs
 only its remaining ``n_batches - start_step % n_batches`` batches, taken
 from the start of that permutation (the rows the JAX CLI's default
 chained engine gives those steps, ``plan_windows``), and the run ends at
-the planned total, ``n_epochs * n_batches``.
+the planned total, ``n_epochs * n_batches``.  (The JAX chained engine
+plans a whole epoch from the resume point and so runs past that total;
+the port does not copy that.)
 """
 
 from __future__ import annotations
 
+import json
+import os
+import time
 from typing import Callable, Iterable, Optional
 
 import numpy as np
 import torch
 
 from eadgan_tpu_torch.models.layers import no_stat_updates
+from eadgan_tpu_torch.train.chain import (
+    LazyHostBatch,
+    LazyLastMetrics,
+    make_chained_step,
+    normalize_prepare,
+    plan_windows,
+)
 from eadgan_tpu_torch.utils.logging import MetricLogger
 
 __all__ = ["run_epochs", "epoch_batches", "generator_apply"]
@@ -60,7 +80,11 @@ def epoch_batches(
                 mask = flip_rng.random(len(idx)) < 0.5
                 out[mask] = out[mask, :, ::-1]
             if data.ndim == 3:
-                out = out[..., None]
+                # a reshape, not ``out[..., None]``: numpy gives a new axis
+                # stride 0, which the copy to the card keeps, and cuDNN
+                # takes another algorithm for that layout than for the
+                # chained engine's batches (stride 1), which then differ
+                out = out.reshape(out.shape + (1,))
             yield epoch, out
 
 
@@ -80,6 +104,8 @@ def run_epochs(
     scale: float = 1.0,
     shift: float = 0.0,
     random_flip: bool = False,
+    chain: int = 1,
+    chain_periods: tuple = (),
 ):
     """The reference's epoch/batch double loop.
 
@@ -90,13 +116,30 @@ def run_epochs(
     logger converts them only when it prints or writes.  ``max_steps``
     stops after that many steps (0: the whole schedule).  Closes
     ``logger`` at the end.
+
+    ``chain > 1`` runs the chained engine (:func:`_run_epochs_chained`):
+    ``chain_periods`` are the intervals of ``on_batch``'s side effects,
+    and ``on_batch`` runs only at window ends that are multiples of one
+    of them (every window end when there are none), where the state is
+    the true post-step state.  Every trainer's callback gates itself on
+    those intervals, so what it writes is what the per-step engine
+    writes.
     """
     if random_flip and data.dtype != np.uint8:
         raise ValueError("random_flip requires the uint8 image ingest path")
+    if chain < 1:
+        raise ValueError(f"chain must be >= 1, got {chain}")
     n_batches = data.shape[0] // batch_size
     start_step = state.step
     batches_done = start_step
     try:
+        if chain > 1:
+            return _run_epochs_chained(
+                n_epochs=n_epochs, data=data, batch_size=batch_size, state=state,
+                step_fn=step_fn, on_batch=on_batch, device=torch.device(device), seed=seed,
+                max_steps=max_steps, logger=logger, metric_keys=metric_keys, scale=scale,
+                shift=shift, random_flip=random_flip, chain=chain, chain_periods=chain_periods,
+            )
         for epoch, host in epoch_batches(
             data, batch_size, n_epochs, seed=seed, start_step=start_step,
             scale=scale, shift=shift, random_flip=random_flip,
@@ -120,6 +163,139 @@ def run_epochs(
     finally:
         if logger is not None:
             logger.close()
+    return state
+
+
+def _run_epochs_chained(
+    *, n_epochs, data, batch_size, state, step_fn, on_batch, device, seed, max_steps,
+    logger, metric_keys, scale, shift, random_flip, chain, chain_periods,
+):
+    """Windows of up to ``chain`` steps through a :class:`~eadgan_tpu_torch.
+    train.chain.ChainedStep` of ``step_fn``, after
+    ``eadgan_tpu/train/engine.py::_run_epochs_chained``.
+
+    The uint8 dataset is staged on ``device`` once (real CelebA, 2.4 GB,
+    and real dSprites, 2.9 GB, take a few percent of an 80 GB card; a
+    dataset larger than the card's free memory raises); a window then
+    carries only its (k, B) int32 row indices, plus the (k, B) flip
+    masks, copied in once from pinned host memory, and the batches are
+    gathered on the card.
+
+    Window w + 1 is enqueued before window w's (k, M) metrics, copied to
+    pinned host memory behind it, are waited for and logged one record
+    per step, so the host never waits for the window it has just
+    enqueued.  ``on_batch`` then runs at event window ends with the
+    window's last step: its index, the state, the metrics (fetched only
+    if read) and that step's batch, made on the device.  Events run
+    inline: a checkpoint written there holds the true post-window state.
+
+    ``EADGAN_CHAIN_TRACE=<path>`` appends one JSONL record per window of
+    host times in seconds: ``iter`` (the window's indices and masks made
+    and copied), ``disp`` (its steps enqueued), ``drain`` (the previous
+    window's metrics waited for and logged), ``cb`` (``on_batch``).
+    Their sum is the time between two window ends.
+    """
+    host_rng = np.random.default_rng(seed)
+    flip_rng = np.random.default_rng([seed, _FLIP_STREAM])
+    n_rows = data.shape[0]
+    n_batches = n_rows // batch_size
+    start_step = state.step
+    total = n_epochs * n_batches
+    stop = min(total, start_step + max_steps) if max_steps else total
+    on_card = device.type == "cuda"
+
+    if on_card:
+        free, _ = torch.cuda.mem_get_info(device)
+        if data.nbytes > free:
+            raise RuntimeError(
+                f"the {data.nbytes / 2**30:.2f} GiB uint8 dataset does not fit in the card's "
+                f"{free / 2**30:.2f} GiB of free memory, where the chained engine keeps it "
+                "(--chain 1 runs the per-step path, which copies one batch at a time)"
+            )
+    prepare = normalize_prepare(scale, shift, flip=random_flip, add_channel=data.ndim == 3)
+    consts = (torch.from_numpy(data).to(device),)
+    rng = getattr(state, "rng", None)
+    chained = make_chained_step(
+        step_fn, prepare, pack_keys="auto", generators=(rng,) if on_card and rng is not None else ()
+    )
+
+    def to_device(array):
+        t = torch.from_numpy(np.ascontiguousarray(array))
+        return t.pin_memory().to(device, non_blocking=True) if on_card else t
+
+    trace_path = os.environ.get("EADGAN_CHAIN_TRACE", "")
+    trace = open(trace_path, "a") if trace_path else None
+    pending = None  # the previous window: (start, k, epoch, host metrics, ready event)
+
+    def drain():
+        nonlocal pending
+        if pending is None:
+            return
+        ps, pk, pepoch, host, ready = pending
+        pending = None
+        if ready is not None:
+            ready.synchronize()
+        if logger is not None:
+            keys = chained.resolved_pack_keys
+            rows = host.numpy()
+            shown = [keys.index(m) for m in metric_keys] if metric_keys else range(len(keys))
+            for i in range(pk):
+                logger.log(
+                    ps + i, {keys[j]: rows[i, j] for j in shown}, epoch=pepoch,
+                    n_epochs=n_epochs, batch=(ps + i) % n_batches, n_batches=n_batches,
+                )
+
+    s = start_step
+    epoch = s // max(n_batches, 1)
+    t_prev = time.perf_counter()
+    try:
+        while epoch < n_epochs and s < stop:
+            perm = host_rng.permutation(n_rows)
+            epoch_end = min((epoch + 1) * n_batches, stop)
+            first = s
+            for ws, k in plan_windows(s, epoch_end - s, chain, chain_periods, stop):
+                rows = perm[(ws - first) * batch_size : (ws - first + k) * batch_size]
+                rows = rows.reshape(k, batch_size)
+                window = [to_device(rows.astype(np.int32))]
+                if random_flip:
+                    # one draw per batch, in batch order: the per-step stream
+                    window.append(to_device(np.stack(
+                        [flip_rng.random(batch_size) < 0.5 for _ in range(k)]
+                    )))
+                t0 = time.perf_counter()
+                state, stacked = chained(state, consts, *window)
+                state.step = ws + k
+                if on_card:
+                    host = torch.empty(stacked.shape, pin_memory=True)
+                    host.copy_(stacked, non_blocking=True)
+                    ready = torch.cuda.Event()
+                    ready.record()
+                else:
+                    host, ready = stacked, None
+                t1 = time.perf_counter()
+                drain()
+                pending = (ws, k, epoch, host, ready)
+                t2 = time.perf_counter()
+                is_event = any((ws + k - 1) % p == 0 for p in chain_periods if p)
+                if is_event or not chain_periods:
+                    last = [w[-1] for w in window]
+                    fetch = lambda last=last: prepare(consts, *last)[0]  # noqa: E731
+                    batch = fetch() if is_event else LazyHostBatch(fetch)
+                    on_batch(ws + k - 1, state, LazyLastMetrics(chained.resolved_pack_keys, stacked),
+                             (batch,))
+                t3 = time.perf_counter()
+                if trace is not None:
+                    trace.write(json.dumps({
+                        "s": ws, "k": k, "iter": t0 - t_prev, "disp": t1 - t0,
+                        "drain": t2 - t1, "cb": t3 - t2,
+                    }) + "\n")
+                t_prev = t3
+            s = epoch_end
+            epoch += 1
+        drain()
+    finally:
+        if trace is not None:
+            trace.close()
     return state
 
 

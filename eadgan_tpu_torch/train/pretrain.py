@@ -43,10 +43,11 @@ def init_pxy_state(config: PxyConfig, device=None, seed: int = 0) -> EncoderTrai
     """A fresh aligner and its Adam on ``device`` (the CUDA card when
     None)."""
     device = resolve_device(device)
+    on_card = device.type == "cuda"  # Adam capturable for CUDA-graph replay
     model = pxy_encoder(config.colored, seed).to(device).train()
     return EncoderTrainState(
         model=model,
-        opt=adam(model.parameters(), config.lr, config.b1, config.b2),
+        opt=adam(model.parameters(), config.lr, config.b1, config.b2, on_card),
         rng=torch.Generator(device=device).manual_seed(seed),
     )
 

@@ -20,9 +20,17 @@ from torch import nn
 __all__ = ["adam", "GanTrainState", "EncoderTrainState"]
 
 
-def adam(params, lr: float, b1: float = 0.5, b2: float = 0.999) -> torch.optim.Adam:
-    """``torch.optim.Adam`` with the reference betas and eps 1e-8."""
-    return torch.optim.Adam(params, lr=lr, betas=(b1, b2), eps=1e-8)
+def adam(params, lr: float, b1: float = 0.5, b2: float = 0.999,
+         capturable: bool = False) -> torch.optim.Adam:
+    """``torch.optim.Adam`` with the reference betas and eps 1e-8.
+
+    ``capturable`` keeps Adam's step count on the card and computes the
+    bias corrections there, which CUDA-graph replay of a step needs (a
+    host count would move once, at capture).  The CPU build refuses it.
+    The trainers' inits pass ``capturable=True`` for every state on the
+    card, per-step or chained, so both engines run the same Adam and a
+    train state moves between them unchanged."""
+    return torch.optim.Adam(params, lr=lr, betas=(b1, b2), eps=1e-8, capturable=capturable)
 
 
 @dataclasses.dataclass

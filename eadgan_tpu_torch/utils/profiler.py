@@ -1,14 +1,20 @@
 """Device-time breakdown of a train step on the card.
 
-``python -m eadgan_tpu_torch.utils.profiler [--pipeline celeba|rp]
-[--compute bf16] [--tf32] [--out FILE]`` runs one pipeline's step at
-batch 128 (random weights from seed 0; CelebA on random images, rp, the
-gray dSprites GAN step with a fresh frozen aligner, on synthetic sprites;
-f32 unless ``--compute bf16``) under ``torch.profiler`` for 5 steps after
-a warm-up, and reports the step time by CUDA events, the device's busy
-share of the profiled window (summed kernel time over wall time), the
-kernel launches per step, the warp kernel's launches and share of the
-kernel time, and the kernels that take the most device time.  ``--tf32``
+``python -m eadgan_tpu_torch.utils.profiler [--pipeline celeba|rp|rp_color]
+[--compute bf16] [--tf32] [--chain K] [--out FILE]`` runs one pipeline's
+step at batch 128 (random weights from seed 0; CelebA on synthetic
+faces, rp, the dSprites GAN step with a fresh frozen aligner, on
+synthetic sprites; f32 unless ``--compute bf16``) under
+``torch.profiler`` for 5 steps after a warm-up, and reports the step
+time by CUDA events, the device's busy share of the profiled window
+(summed kernel time over wall time), the kernel launches per step, the
+warp kernel's launches (by its wrapper's count and by the trace) and
+share of the kernel time, and the kernels that take the most device
+time.  ``--chain K`` does the same for the chained engine's step: one
+eager step, the capture, then windows of K replays of the CUDA graph
+(``train/chain.py``), each gathering its batch on the card from the
+resident uint8 dataset as the CLIs' graph does, timed a window at a time
+and profiled over one window.  ``--tf32``
 allows TF32 in convolutions and matrix products (off by default, as in
 ``chip_smoke.py``).  Needs a CUDA card.
 """
@@ -25,39 +31,57 @@ import time
 import numpy as np
 import torch
 
+from eadgan_tpu_torch.data.celeba import _synthetic_faces
 from eadgan_tpu_torch.data.dsprites import synthetic_dsprites
 from eadgan_tpu_torch.ops import stn_cuda
-from eadgan_tpu_torch.train.config import CelebaConfig, SpritesGanConfig
+from eadgan_tpu_torch.train.chain import make_chained_step, normalize_prepare
+from eadgan_tpu_torch.train.config import CelebaConfig, PxyConfig, SpritesGanConfig
+from eadgan_tpu_torch.train.engine import epoch_batches
 from eadgan_tpu_torch.train.gan_celeba import init_celeba_gan_state, make_celeba_gan_step
 from eadgan_tpu_torch.train.gan_dsprites import init_sprites_gan_state, make_sprites_gan_step
-from eadgan_tpu_torch.train.pretrain import pxy_encoder
+from eadgan_tpu_torch.train.pretrain import init_pxy_state, make_pxy_step, pxy_encoder
 
-__all__ = ["build_step", "profile_step", "sprite_warp_inputs"]
+__all__ = ["PIPELINES", "build_step", "first_batch", "chained_replays", "profile_step",
+           "sprite_warp_inputs"]
+
+PIPELINES = ("celeba", "pxy", "pxy_color", "rp", "rp_color")
 
 _WARP_KERNEL = "warp_affine_kernel"
 
 
-def build_step(pipeline: str, batch_size: int = 128, dtype=None):
-    """(state, step, images) of one pipeline at ``batch_size`` on the
-    card, weights from seed 0."""
-    device = "cuda"
+def build_step(pipeline: str, batch_size: int = 128, dtype=None, device="cuda"):
+    """(state, step, data, prep) of one pipeline on ``device``, weights
+    and draws from seed 0: ``data`` is a synthetic uint8 dataset (1,024
+    faces at batch 128, 8 batches; 1,500 sprites) and ``prep`` the
+    keyword arguments of ``train/engine.py::run_epochs`` that make the
+    step's batches from its rows, as the pipeline's CLI passes them.
+    ``dtype`` is the models' compute type (None: float32; the pxy
+    aligner is float32 only); rp's aligner is a fresh one."""
     if pipeline == "celeba":
         config = CelebaConfig(batch_size=batch_size)
         state = init_celeba_gan_state(config, device=device, seed=0, dtype=dtype)
-        gen = torch.Generator(device=device).manual_seed(1)
-        imgs = torch.rand((batch_size, 64, 64, 3), generator=gen, device=device) * 2 - 1
-        return state, make_celeba_gan_step(config), imgs
-    if pipeline in ("rp", "rp_color"):
-        colored = pipeline == "rp_color"
-        config = SpritesGanConfig.for_dataset(colored, batch_size=batch_size)
-        state = init_sprites_gan_state(
-            config, pxy_encoder(colored, seed=1), device=device, seed=0, dtype=dtype
-        )
-        sprites = synthetic_dsprites(n_pos=3).imgs
-        idx = np.random.default_rng(0).choice(len(sprites), batch_size, replace=len(sprites) < batch_size)
-        imgs = torch.from_numpy(sprites[idx][..., None].astype(np.float32)).to(device)
-        return state, make_sprites_gan_step(config), imgs
-    raise ValueError(f"unknown pipeline {pipeline!r}: expected celeba, rp or rp_color")
+        data = _synthetic_faces(n=8 * batch_size, size=64, seed=0)
+        prep = {"scale": 1.0 / 127.5, "shift": -1.0, "random_flip": True}
+        return state, make_celeba_gan_step(config), data, prep
+    if pipeline not in PIPELINES:
+        raise ValueError(f"unknown pipeline {pipeline!r}: expected one of {PIPELINES}")
+    colored = pipeline.endswith("_color")
+    data = synthetic_dsprites(n_pos=5).imgs
+    prep = {"scale": 1.0, "shift": 0.0, "random_flip": False}
+    if pipeline.startswith("pxy"):
+        config = PxyConfig.for_dataset(colored, batch_size=batch_size)
+        return init_pxy_state(config, device=device, seed=0), make_pxy_step(config), data, prep
+    config = SpritesGanConfig.for_dataset(colored, batch_size=batch_size)
+    state = init_sprites_gan_state(
+        config, pxy_encoder(colored, seed=1), device=device, seed=0, dtype=dtype
+    )
+    return state, make_sprites_gan_step(config), data, prep
+
+
+def first_batch(data, prep: dict, batch_size: int, device="cuda") -> torch.Tensor:
+    """The per-step engine's first batch of ``data`` (seed 0) on ``device``."""
+    _, host = next(epoch_batches(data, batch_size, 1, **prep))
+    return torch.from_numpy(host).to(device)
 
 
 def sprite_warp_inputs(channels: int, matrices: str, device, seed: int = 0):
@@ -80,32 +104,63 @@ def sprite_warp_inputs(channels: int, matrices: str, device, seed: int = 0):
     return img.contiguous().to(device), matrix.to(device)
 
 
+def chained_replays(state, step, data, prep: dict, batch_size: int, chain: int):
+    """``run()``: one window of ``chain`` steps of the chained engine's
+    step, each gathering its batch on the card from ``data`` resident
+    there (random rows and flips from seed 0, the same every window), as
+    the CLIs' graph does; the chained step's eager first step, its
+    capture and the rest of that first window run here, so every step of
+    ``run()`` is a replay."""
+    rng = np.random.default_rng(0)
+    rows = np.stack([rng.choice(len(data), batch_size, replace=False) for _ in range(chain)])
+    window = [torch.from_numpy(rows.astype(np.int32)).cuda()]
+    if prep["random_flip"]:
+        window.append(torch.from_numpy(rng.random((chain, batch_size)) < 0.5).cuda())
+    consts = (torch.from_numpy(data).cuda(),)
+    prepare = normalize_prepare(prep["scale"], prep["shift"], flip=prep["random_flip"],
+                                add_channel=data.ndim == 3)
+    chained = make_chained_step(step, prepare, generators=(state.rng,))
+    chained(state, consts, *window)
+
+    def run():
+        return chained(state, consts, *window)
+
+    return run
+
+
 def profile_step(pipeline: str = "celeba", batch_size: int = 128, steps: int = 5, warmup: int = 5,
-                 dtype=None):
+                 dtype=None, chain: int = 0):
     """Returns (summary dict, profiler table text); ``dtype`` is the
-    models' compute type (None: float32)."""
+    models' compute type (None: float32); ``chain`` > 0 profiles the
+    replays of the chained step, ``chain`` a window."""
     from torch.profiler import ProfilerActivity, profile
 
-    state, step, imgs = build_step(pipeline, batch_size, dtype)
+    state, step, data, prep = build_step(pipeline, batch_size, dtype)
+    imgs = first_batch(data, prep, batch_size)
     for _ in range(warmup):
         step(state, imgs)
     torch.cuda.synchronize()
 
+    if chain:
+        run, per_run, runs = chained_replays(state, step, data, prep, batch_size, chain), chain, 3
+        steps = chain
+    else:
+        run, per_run, runs = (lambda: step(state, imgs)), 1, 20
     events = []
-    for _ in range(20):
+    for _ in range(runs):
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         start.record()
-        step(state, imgs)
+        run()
         end.record()
         events.append((start, end))
     torch.cuda.synchronize()
-    step_ms = statistics.median(s.elapsed_time(e) for s, e in events)
+    step_ms = statistics.median(s.elapsed_time(e) for s, e in events) / per_run
 
     warp_before = stn_cuda.launch_count
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(steps):
-            step(state, imgs)
+        for _ in range(steps // per_run):
+            run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     warp_launches = stn_cuda.launch_count - warp_before
@@ -118,8 +173,12 @@ def profile_step(pipeline: str = "celeba", batch_size: int = 128, steps: int = 5
         ):
             per_kernel[e.name][0] += 1
             per_kernel[e.name][1] += e.time_range.elapsed_us()
-    device_ms = sum(us for _, us in per_kernel.values()) / 1e3
-    warp_us = sum(us for name, (_, us) in per_kernel.items() if _WARP_KERNEL in name)
+    # a trace that shows no kernel (CUPTI missing graph replays) says so
+    # with None, never with a zero
+    seen = bool(per_kernel) or None
+    device_ms = seen and sum(us for _, us in per_kernel.values()) / 1e3
+    warp_us = seen and sum(us for name, (_, us) in per_kernel.items() if _WARP_KERNEL in name)
+    warp_calls = seen and sum(calls for name, (calls, _) in per_kernel.items() if _WARP_KERNEL in name)
     top = sorted(per_kernel.items(), key=lambda kv: kv[1][1], reverse=True)[:15]
     summary = {
         "device": torch.cuda.get_device_name(0),
@@ -127,15 +186,18 @@ def profile_step(pipeline: str = "celeba", batch_size: int = 128, steps: int = 5
         "batch_size": batch_size,
         "compute": "bf16" if dtype == torch.bfloat16 else "f32",
         "tf32": torch.backends.cudnn.allow_tf32,
+        "chain": chain or 1,
         "step_ms_cuda_events": step_ms,
         "profiled_steps": steps,
         "profiled_wall_ms": wall_ms,
+        "kernels_in_trace": bool(seen),
         "device_kernel_ms": device_ms,
-        "device_busy_share": device_ms / wall_ms if wall_ms else None,
-        "kernel_launches_per_step": sum(calls for calls, _ in per_kernel.values()) / steps,
+        "device_busy_share": seen and device_ms / wall_ms,
+        "kernel_launches_per_step": seen and sum(calls for calls, _ in per_kernel.values()) / steps,
         "warp_launches_per_step": warp_launches / steps,
-        "warp_device_ms_per_step": warp_us / 1e3 / steps,
-        "warp_share_of_kernel_time": warp_us / 1e3 / device_ms if device_ms else None,
+        "warp_kernels_in_trace_per_step": seen and warp_calls / steps,
+        "warp_device_ms_per_step": seen and warp_us / 1e3 / steps,
+        "warp_share_of_kernel_time": seen and warp_us / 1e3 / device_ms,
         "top_kernels": [
             {"name": name[:120], "calls_per_step": calls / steps,
              "device_ms_per_step": us / 1e3 / steps}
@@ -151,6 +213,8 @@ def main(argv=None) -> None:
                         help="the train step to profile")
     parser.add_argument("--compute", choices=["bf16", "f32"], default="f32", help="model compute type")
     parser.add_argument("--tf32", action="store_true", help="allow TF32 in convs and matmuls")
+    parser.add_argument("--chain", type=int, default=0,
+                        help="profile a window of this many replays of the captured step")
     parser.add_argument("--out", type=str, default="", help="also write the profiler table here")
     opt = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -158,7 +222,7 @@ def main(argv=None) -> None:
     torch.backends.cudnn.allow_tf32 = opt.tf32
     torch.backends.cuda.matmul.allow_tf32 = opt.tf32
     summary, table = profile_step(
-        opt.pipeline, dtype=torch.bfloat16 if opt.compute == "bf16" else None
+        opt.pipeline, dtype=torch.bfloat16 if opt.compute == "bf16" else None, chain=opt.chain
     )
     if opt.out:
         os.makedirs(os.path.dirname(opt.out) or ".", exist_ok=True)

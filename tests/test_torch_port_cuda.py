@@ -12,6 +12,15 @@ inverse matrices (codes in [-3, 3], so some rows land wholly outside the
 image) and rp matrices, and one gray rp step on the card launches it
 exactly three times.
 
+The chained engine (one CUDA graph of the train step, replayed): 8
+steps of ``run_epochs`` for the pxy, gray rp and CelebA f32 steps at
+batch 16 in windows of up to 4 against two per-step runs from copies of
+the same state (``tools/chain_check.py``): with cuDNN held to its
+deterministic algorithms the two per-step runs agree bit for bit, and
+the chained run must too, in every logged loss and event batch; the
+warp's launches are counted per replay.  A train state saved by a chained CLI run resumes under
+``--chain 1``, and one saved at ``--chain 1`` resumes chained.
+
 Tolerances: the warp in float32 2e-5 (nvcc contracts multiply-adds into
 FMA, so a coordinate can land an ulp apart and pick the neighbouring
 texel's weights; bilinear output is continuous, so the error stays
@@ -176,3 +185,58 @@ def test_fused_conv_kernel_rejects(cuda):
         fused_conv_cuda.fused_conv_lrelu_cuda(x[..., :12].contiguous(), w[:, :, :12].contiguous(), b)
     with pytest.raises(RuntimeError, match="forward-only"):
         fused_conv_cuda.fused_conv_lrelu_cuda(x, w.clone().requires_grad_(True), b)
+
+
+@pytest.mark.parametrize("pipeline", ["pxy", "rp", "celeba"])
+def test_chained_step_matches_per_step(cuda, pipeline):
+    from eadgan_tpu_torch.tools.chain_check import run_check
+
+    report = run_check(pipeline, steps=8, chain=4, batch=16)
+    assert report["ok"], report
+    assert report["spread"] == report["err"] == 0 and report["event_steps"] == [0, 4]
+
+
+def test_warp_launches_counted_per_replay(cuda):
+    from eadgan_tpu_torch.train.chain import make_chained_step
+    from eadgan_tpu_torch.train.config import SpritesGanConfig
+    from eadgan_tpu_torch.train.gan_dsprites import init_sprites_gan_state, make_sprites_gan_step
+    from eadgan_tpu_torch.train.pretrain import pxy_encoder
+
+    config = SpritesGanConfig(batch_size=4)
+    state = init_sprites_gan_state(config, pxy_encoder(False, seed=1), device=cuda, seed=0)
+    img, _ = sprite_warp_inputs(1, "rp", cuda)
+    window = img[:4].contiguous().expand(4, 4, 64, 64, 1)
+    chained = make_chained_step(make_sprites_gan_step(config), generators=(state.rng,))
+    before, captured = stn_cuda.launch_count, stn_cuda.captured_count
+    chained(state, (), window)  # one eager step, the capture, three replays
+    torch.cuda.synchronize()
+    assert stn_cuda.captured_count == captured + 3 and chained.captured_warps == 3
+    assert stn_cuda.launch_count == before + 3 + 3 * 3
+    _, packed = chained(state, (), window)  # four replays
+    torch.cuda.synchronize()
+    assert stn_cuda.launch_count == before + 3 + 7 * 3
+    assert stn_cuda.captured_count == captured + 3  # captured once per run
+    assert packed.shape == (4, 6) and torch.isfinite(packed).all()
+
+
+@pytest.mark.parametrize("first,then", [(32, 1), (1, 32)], ids=["chained_then_per_step",
+                                                              "per_step_then_chained"])
+def test_train_state_resumes_across_chain_settings(cuda, tmp_path, monkeypatch, first, then):
+    """240 sprites at batch 16: 15 batches an epoch, one epoch.  The first
+    run saves its state at step 0 and stops after 3 steps; the resumed
+    run continues from step 1 to the planned total."""
+    import json
+    import math
+
+    from eadgan_tpu_torch.cli import rp
+
+    monkeypatch.setenv("EADGAN_PLATFORM", "cuda")
+    monkeypatch.setenv("EADGAN_SYNTH_POS", "2")
+    common = ["--batch_size", "16", "--n_epochs", "1", "--sample_interval", "1000",
+              "--allow_fresh_pxy", "--keep_states", "2", "--data_dir", str(tmp_path),
+              "--out_dir", str(tmp_path / "images"), "--ckpt_dir", str(tmp_path)]
+    rp.main(common + ["--chain", str(first), "--max_steps", "3", "--jsonl", str(tmp_path / "a.jsonl")])
+    rp.main(common + ["--chain", str(then), "--resume", "auto", "--jsonl", str(tmp_path / "b.jsonl")])
+    records = [json.loads(line) for line in (tmp_path / "b.jsonl").read_text().splitlines()]
+    assert [r["step"] for r in records] == list(range(1, 15))
+    assert all(math.isfinite(r[k]) for r in records for k in rp.METRIC_KEYS)

@@ -49,7 +49,7 @@ def test_cli_trains_on_cpu(tmp_path, monkeypatch):
             assert (tmp_path / "images" / name / f"{step}.png").is_file(), (name, step)
 
 
-@pytest.mark.parametrize("flag", ["--chain", "--zero_opt", "--preempt_save", "--watchdog"])
+@pytest.mark.parametrize("flag", ["--profile_dir", "--zero_opt", "--preempt_save", "--watchdog"])
 def test_cli_rejects_later_slice_flags(flag, capsys):
     with pytest.raises(SystemExit):
         cli.main([flag, "1"])

@@ -166,7 +166,7 @@ def test_batch_sequence_of_3d_data_matches_jax_engine(max_steps, start):
 
 
 @pytest.mark.parametrize("cli", [pxy, pxy_color, rp, rp_color], ids=lambda m: m.__name__.rsplit(".", 1)[-1])
-@pytest.mark.parametrize("flag", ["--chain", "--data_parallel", "--zero_opt", "--preempt_save", "--watchdog"])
+@pytest.mark.parametrize("flag", ["--profile_dir", "--data_parallel", "--zero_opt", "--preempt_save", "--watchdog"])
 def test_cli_rejects_later_slice_flags(cli, flag):
     with pytest.raises(SystemExit):
         cli.main([flag, "1"])
