@@ -7,15 +7,18 @@ CUDA card and the CUDA toolkit (nvcc) and runs five phases, failing with
 a non-zero exit on the first that fails:
 
 1. environment: card name and power limit, torch/CUDA versions, TF32
-   switched off, and the build of every kernel from ``csrc/`` (one nvcc
-   per source, all at once);
+   switched off as the CLIs switch it (``cli/common.py::disable_tf32``),
+   and the build of every kernel from ``csrc/`` (one nvcc per source, all
+   at once);
 2. each kernel against its plain PyTorch version on the card: the warp
    over the cases of ``tests/test_stn_pallas.py``, the CelebA shape, the
    edges of its 4-pixel groups (a row end no multiple of 4, C = 2, 4, 5)
    and the dSprites trainers' shapes ((128, 64, 64, 1) binary sprites and
    (128, 64, 64, 3) colorized ones, under the aligner's inverse matrices
    on codes in [-3, 3], some rows wholly outside the image, and under rp
-   matrices), in both paddings, f32 and bf16; the fused conv + LeakyReLU
+   matrices) and the MNIST step's shape ((128, 32, 32, 1) digits under
+   rpqmnxy matrices), in both paddings, f32 and bf16; the fused conv +
+   LeakyReLU
    in bf16 over the test shapes, the CelebA discriminator's layer 2 at
    batch 128 and the edges of its tiles (Cout and Cin no multiple of the
    tile, Ho no multiple of 8 or 16, one image, several waves), with the
@@ -24,15 +27,18 @@ a non-zero exit on the first that fails:
 3. train steps on the CPU and on the card from the same weights and
    draws, three steps at batch 4: CelebA at the low-lr config in f32 and
    bf16; the pxy step gray and colored in f32; the rp step gray and
-   colored in f32 and gray in bf16; then the chained engine (one CUDA
-   graph of the step, replayed) against the per-step engine on the card,
+   colored in f32 and gray in bf16; the MNIST step in f32 and bf16 and
+   the approximator step in f32; then the chained engine (one CUDA graph
+   of the step, replayed) against the per-step engine on the card,
    ``run_epochs`` for 8 steps at batch 128 with events every 4, for
-   CelebA f32, pxy gray and rp gray and colored
+   CelebA f32, pxy gray, rp gray and colored and MNIST
    (``tools/chain_check.py``: cuDNN deterministic, two per-step runs and
    the chained one bit-equal in every logged loss and event batch, the
    warp counted per replay); and the warp's launches counted per replay
    by its wrapper held against the warp kernels the CUPTI trace of a
-   window of 32 replayed gray rp steps shows;
+   window of 32 replayed gray rp steps shows; and the BatchNorm-folded
+   bf16 CelebA generator against its float32 eval-mode forward at batch
+   128;
 4. the main paths, each with its kernel's launch count set to 0 just
    before and read just after, and the warp's count held exactly (a
    replayed step counts the launches its capture recorded): the CelebA
@@ -46,19 +52,27 @@ a non-zero exit on the first that fails:
    + 2 for the grid), ``cli.rp --resume auto --compute bf16 --chain 1``
    to the planned total, ``cli.pxy_color`` and ``cli.rp_color`` (10 steps
    each), and a longer chained ``cli.rp`` on ``EADGAN_SYNTH_POS=8`` (30
-   batches an epoch, 90 steps) with ``EADGAN_CHAIN_TRACE``; and the fused
-   conv's probe, ``python -m eadgan_tpu_torch.tools.fused_conv_probe`` at
-   its defaults, whose record gives the fused conv's kernel and library
-   times;
-5. timing with CUDA events: the B=128 CelebA step in f32 and in bf16 and
-   the rp step gray f32, gray bf16 and colored f32 (with images/s and the
-   warp's share), each per step and replayed (windows of 32 replays,
-   each gathering its batch on the card from the resident uint8 dataset
-   as the CLIs' graph does, after the eager step and the capture), the
-   warp beside its bound, its
+   batches an epoch, 90 steps) with ``EADGAN_CHAIN_TRACE``; ``cli.gen_imgs
+   --quant none`` and ``--quant bf16`` on the CelebA run's
+   ``checkpoint_0.tar``; the MNIST pipeline at batch 128 on the
+   synthetic digits, ``cli.approximate_rpqmnxy`` (a short run), then
+   ``cli.mnist --chain 32`` on its file (32 steps, 1 warp a step + 1 for
+   the step-0 grid), then ``cli.generate_image`` on its generator file;
+   and the fused conv's probe, ``python -m
+   eadgan_tpu_torch.tools.fused_conv_probe`` at its defaults, whose
+   record gives the fused conv's kernel and library times;
+5. timing with CUDA events: the B=128 CelebA step in f32 and in bf16,
+   the rp step gray f32, gray bf16 and colored f32, the MNIST step in
+   f32 and bf16 and the approximator step (with images/s and the warp's
+   share), each per step and replayed (windows of 32 replays, each
+   gathering its batch on the card from the resident dataset as the
+   CLIs' graph does, after the eager step and the capture); CelebA
+   generator inference at batch 128, the float32 eval forward and the
+   folded bf16 one, beside their bound; the warp beside its bound, its
    plain version and the library call that computes the same function at
-   (128, 64, 64, 3) and at (128, 64, 64, 1) in both paddings, and the
-   fused conv's plain version, bound and host cost per call.
+   (128, 64, 64, 3), at (128, 64, 64, 1) in both paddings and at the
+   MNIST step's (128, 32, 32, 1), and the fused conv's plain version,
+   bound and host cost per call.
 
 Its last lines are the ``{"kernels": [...]}`` record, the ``nvidia-smi``
 name/power-limit line, and ``{"ok": true, "device": {...}}``.
@@ -111,17 +125,18 @@ def nvidia_smi_line() -> str:
 
 
 def phase_environment(torch):
+    from eadgan_tpu_torch.cli.common import disable_tf32
+
     smi = nvidia_smi_line()
     print(f"nvidia-smi: {smi}", flush=True)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    disable_tf32()  # as every CLI does before it picks the device
     print(
         f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]} "
         f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}",
         flush=True,
     )
     print(
-        "tf32: cudnn.allow_tf32="
+        "tf32 (as the CLIs set it): cudnn.allow_tf32="
         f"{torch.backends.cudnn.allow_tf32} cuda.matmul.allow_tf32="
         f"{torch.backends.cuda.matmul.allow_tf32}",
         flush=True,
@@ -219,7 +234,7 @@ def phase_kernel_vs_plain(torch):
     from eadgan_tpu_torch.ops.stn import warp_affine_plain
     from eadgan_tpu_torch.ops.stn_cuda import warp_affine_cuda
     from eadgan_tpu_torch.transforms import RPQXY, code_to_matrix
-    from eadgan_tpu_torch.utils.profiler import sprite_warp_inputs
+    from eadgan_tpu_torch.utils.profiler import mnist_warp_inputs, sprite_warp_inputs
 
     errs = {}
     gen = torch.Generator().manual_seed(0)
@@ -256,6 +271,27 @@ def phase_kernel_vs_plain(torch):
                 emit({"case": name, "kernel": "warp_affine", "shape": list(img.shape), "padding": pad,
                       "dtype": str(dtype).removeprefix("torch."), "max_abs_err": err, "tol": tol})
                 check(math.isfinite(err) and err <= tol, f"kernel vs plain {name} {pad} {dtype}: {err}")
+                if (channels, matrices, pad, dtype) == (1, "rp", "border", torch.float32):
+                    errs["warp_affine_pair"] = err
+
+    # the MNIST step's warp: (128, 32, 32, 1), half the columns a block saw
+    # at 64 wide, under the step's rpqmnxy matrices ("border" is the step's)
+    img32, matrix = mnist_warp_inputs("cuda")
+    for dtype in (torch.float32, torch.bfloat16):
+        img = img32.to(dtype)
+        for pad in ("border", "zeros"):
+            got = warp_affine_cuda(img, matrix, pad)
+            ref = warp_affine_plain(img, matrix, pad)
+            torch.cuda.synchronize()
+            check(got.dtype == dtype and got.shape == img.shape, "mnist warp: dtype/shape")
+            err = (got.float() - ref.float()).abs().max().item()
+            tol = 2e-5 if dtype == torch.float32 else 1e-2
+            emit({"case": "mnist_main", "kernel": "warp_affine", "shape": list(img.shape),
+                  "padding": pad, "dtype": str(dtype).removeprefix("torch."), "max_abs_err": err,
+                  "tol": tol})
+            check(math.isfinite(err) and err <= tol, f"kernel vs plain mnist {pad} {dtype}: {err}")
+            if pad == "border" and dtype == torch.float32:
+                errs["warp_affine_pair_mnist"] = err
 
     # gradients through the warp's autograd wrapper equal the plain ones
     img = torch.rand((2, 16, 16, 3), generator=gen).cuda()
@@ -393,7 +429,92 @@ def phase_step_parity_dsprites(torch):
             _check_step_losses(label, compute, s, losses)
 
 
-CHAIN_CHECKS = ("celeba", "pxy", "rp", "rp_color")
+def phase_step_parity_mnist(torch):
+    """The MNIST step in f32 and bf16 with a fresh frozen approximator, and
+    the approximator's own step in f32, batch 4, three steps at the CLIs'
+    rates, on the CPU and on the card from the same weights and draws."""
+    import numpy as np
+
+    from eadgan_tpu_torch.train.config import ApproximatorConfig, MnistConfig
+    from eadgan_tpu_torch.train.gan_mnist import init_mnist_gan_state, make_mnist_gan_step
+    from eadgan_tpu_torch.train.pretrain import (approximator_model, init_approximator_state,
+                                                 make_approximator_step)
+    from eadgan_tpu_torch.utils.profiler import build_step, first_batch
+
+    batch = 4
+    _, _, data, prep = build_step("mnist", batch_size=batch, device="cpu")
+    imgs = first_batch(data, prep, batch, device="cpu")
+    config = MnistConfig(batch_size=batch)
+    step = make_mnist_gan_step(config)
+    for compute, dtype in (("f32", None), ("bf16", torch.bfloat16)):
+        states = {dev: init_mnist_gan_state(config, approximator_model(seed=1), device=dev, seed=0,
+                                            dtype=dtype) for dev in ("cpu", "cuda")}
+        rng = np.random.default_rng(0)
+        for s in range(3):
+            fixed = {"z": rng.standard_normal((batch, 62)).astype(np.float32),
+                     "sampled_labels": rng.integers(0, 10, batch),
+                     "code": rng.uniform(-1, 1, (batch, 7)).astype(np.float32)}
+            losses = {dev: {k: float(v) for k, v in step(state, imgs.to(dev), fixed=fixed)[1].items()}
+                      for dev, state in states.items()}
+            _check_step_losses("mnist", compute, s, losses)
+
+    config = ApproximatorConfig(batch_size=128)
+    step = make_approximator_step(config)
+    states = {dev: init_approximator_state(config, device=dev, seed=0) for dev in ("cpu", "cuda")}
+    rng = np.random.default_rng(0)
+    for s in range(3):
+        fixed = {"code": rng.uniform(-1, 1, (128, 7)).astype(np.float32)}
+        losses = {dev: {k: float(v) for k, v in step(state, fixed)[1].items()}
+                  for dev, state in states.items()}
+        _check_step_losses("approximator", "f32", s, losses)
+
+
+def inference_generator(torch, batch=128):
+    """A CelebA generator state_dict (torch's default init from seed 0,
+    BatchNorm running statistics drawn away from 0 and 1, as a trained
+    model's are) and (z, one-hot labels, code) inputs on the card."""
+    from eadgan_tpu_torch.models import CelebaGenerator
+
+    gen = torch.Generator().manual_seed(0)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        sd = CelebaGenerator().state_dict()
+    for k, v in sd.items():
+        if k.endswith("running_mean"):
+            v.copy_(0.1 * torch.randn(v.shape, generator=gen))
+        elif k.endswith("running_var"):
+            v.copy_(0.5 + torch.rand(v.shape, generator=gen))
+    z = torch.randn(batch, 200, generator=gen)
+    label = torch.nn.functional.one_hot(torch.randint(0, 10, (batch,), generator=gen), 10).float()
+    code = torch.rand(batch, 8, generator=gen) * 2 - 1
+    return sd, [t.cuda() for t in (z, label, code)]
+
+
+INFER_TOL = 2e-2  # bf16 fold against the f32 eval forward, absolute on tanh outputs
+
+
+def phase_infer_parity(torch):
+    """The BatchNorm-folded bf16 CelebA generator (``cli.gen_imgs --quant
+    bf16``) against its float32 eval-mode forward (``--quant none``) on
+    the card, batch 128."""
+    from eadgan_tpu_torch.models import CelebaGenerator
+    from eadgan_tpu_torch.ops.quant import make_celeba_infer
+
+    sd, x = inference_generator(torch)
+    model = CelebaGenerator()
+    model.load_state_dict(sd)
+    with torch.no_grad():
+        ref = model.cuda().eval()(*x)
+    got = make_celeba_infer(sd, compute_dtype=torch.bfloat16, device="cuda")(*x)
+    torch.cuda.synchronize()
+    err = (got - ref).abs().max().item()
+    emit({"infer_parity": "celeba_generator", "batch": 128, "folded": "bf16", "ref": "f32 eval",
+          "shape": list(got.shape), "max_abs_err": err, "tol": INFER_TOL})
+    check(got.dtype == torch.float32 and got.shape == ref.shape, "folded generator: dtype/shape")
+    check(math.isfinite(err) and err <= INFER_TOL, f"folded bf16 generator vs f32 eval: {err}")
+
+
+CHAIN_CHECKS = ("celeba", "pxy", "rp", "rp_color", "mnist")
 
 
 def phase_chain_parity(torch):
@@ -528,13 +649,99 @@ def phase_trainer(torch):
         # batches run, then 3 whole epochs, ending at the planned total
         check([r["step"] for r in resumed] == list(range(1, total)),
               f"resumed steps {[r['step'] for r in resumed]}")
+
+        # inference from the run's checkpoint: the f32 eval forward and the
+        # BatchNorm-folded bf16 one, 8 sweep grids each
+        infer = {}
+        for quant in ("none", "bf16"):
+            out = os.path.join(tmp, f"gen_imgs_{quant}")
+            t0 = time.perf_counter()
+            run_module(torch, "eadgan_tpu_torch.cli.gen_imgs",
+                       ["--checkpoint", os.path.join(tmp, "checkpoint_0.tar"), "--out_dir", out,
+                        "--quant", quant])
+            infer[quant] = time.perf_counter() - t0
+            for k in range(1, 9):
+                check(os.path.isfile(os.path.join(out, f"varying_c{k}", "0.png")),
+                      f"gen_imgs --quant {quant} grid varying_c{k}")
+            check(not os.path.exists(os.path.join(out, "varying_c9")), "gen_imgs: 8 grids")
     check(launches == total + 1, f"warp kernel launched {launches} times in {total} steps + 1 grid")
     emit({"trainer": module, "batch_size": 128, "steps": total, "compute": "f32", "chain": 32,
           "wall_s": wall, **chained, "warp_launches": launches, "last": records[-1]})
     emit({"trainer_resumed": module, "compute": "bf16", "chain": 1, "from_step": 1,
           "steps": [r["step"] for r in resumed], "wall_s": resume_wall,
           "loop_step_ms_host_clock": loop_ms(resumed), "last": resumed[-1]})
+    emit({"inference_cli": "eadgan_tpu_torch.cli.gen_imgs", "checkpoint": "checkpoint_0.tar",
+          "grids": 8, "wall_s_by_quant": infer})
     return {"warp_affine": launches}
+
+
+MNIST_STEPS, MNIST_GRID_WARPS = 32, 1  # two epochs of the 16-batch stand-in; the grid's warp
+APPROX_ITERATIONS = 300
+
+
+def phase_mnist_trainers(torch):
+    """The MNIST pipeline through its three CLIs at batch 128 on the
+    synthetic digits (2,048, 16 batches an epoch): the approximator for
+    a short run, then ``cli.mnist`` at its default ``--chain 32`` on that
+    file for two epochs, grids and saves at step 0 only, its warp
+    launches counted from 0 and held to exactly one a step plus the
+    step-0 grid's; then ``cli.generate_image`` on the generator file,
+    seven sweep grids.  Returns the warp launches of the MNIST run."""
+    from eadgan_tpu_torch.ops import stn_cuda
+    from eadgan_tpu_torch.train.checkpoint import saved_steps
+
+    with tempfile.TemporaryDirectory(prefix="eadgan_mnist_") as tmp, \
+            environ(EADGAN_PLATFORM="cuda"):
+        approx_jsonl = os.path.join(tmp, "approx.jsonl")
+        t0 = time.perf_counter()
+        run_module(torch, "eadgan_tpu_torch.cli.approximate_rpqmnxy",
+                   ["--iterations", str(APPROX_ITERATIONS), "--ckpt_dir", tmp,
+                    "--jsonl", approx_jsonl])
+        approx_wall = time.perf_counter() - t0
+        approx = read_records(approx_jsonl, ("affine_loss",))
+        check([r["step"] for r in approx] == list(range(APPROX_ITERATIONS)), "approximator steps")
+        approx_file = os.path.join(tmp, "rpqmnxy_approximator.pt")
+        check(os.path.isfile(approx_file), "rpqmnxy_approximator.pt")
+
+        jsonl = os.path.join(tmp, "mnist.jsonl")
+        trace = os.path.join(tmp, "mnist_chain_trace.jsonl")
+        stn_cuda.reset_launch_count()  # counts from here read this run only
+        t0 = time.perf_counter()
+        with environ(EADGAN_CHAIN_TRACE=trace):
+            run_module(torch, "eadgan_tpu_torch.cli.mnist", [
+                "--batch_size", "128", "--n_epochs", "2", "--max_steps", str(MNIST_STEPS),
+                "--sample_interval", str(MNIST_STEPS), "--approximator", approx_file,
+                "--data_dir", tmp, "--out_dir", os.path.join(tmp, "images"), "--ckpt_dir", tmp,
+                "--jsonl", jsonl])
+        wall = time.perf_counter() - t0
+        launches = stn_cuda.launch_count
+        records = read_records(jsonl, ("d_loss", "g_loss", "info_loss"))
+        check([r["step"] for r in records] == list(range(MNIST_STEPS)), "mnist steps")
+        want = MNIST_STEPS + MNIST_GRID_WARPS
+        check(launches == want, f"mnist: warp launched {launches} times, expected {want}")
+        for name in ["static", "original", "scaled"] + [f"varying_c{k}" for k in range(1, 8)]:
+            check(os.path.isfile(os.path.join(tmp, "images", name, "0.png")), f"mnist grid {name}")
+        for name in ("generator_0.pt", "encoder_0.pt"):
+            check(os.path.isfile(os.path.join(tmp, name)), name)
+        check(saved_steps(tmp, "mnist_train_state") == [0], "mnist train state")
+        chained = chained_loop_ms(trace)
+
+        out = os.path.join(tmp, "test")
+        run_module(torch, "eadgan_tpu_torch.cli.generate_image",
+                   ["--checkpoint", os.path.join(tmp, "generator_0.pt"), "--out_dir", out])
+        for k in range(1, 8):
+            check(os.path.isfile(os.path.join(out, f"varying_c{k}", "0.png")),
+                  f"generate_image grid varying_c{k}")
+        check(not os.path.exists(os.path.join(out, "varying_c8")), "generate_image: 7 grids")
+    emit({"trainer": "eadgan_tpu_torch.cli.approximate_rpqmnxy", "batch_size": 128,
+          "steps": APPROX_ITERATIONS, "wall_s": approx_wall,
+          "loop_step_ms_host_clock": loop_ms(approx), "last": approx[-1]})
+    emit({"trainer": "eadgan_tpu_torch.cli.mnist", "batch_size": 128, "steps": MNIST_STEPS,
+          "chain": 32, "warp_launches": launches, "expected_launches": want, "wall_s": wall,
+          **chained, "last": records[-1]})
+    emit({"inference_cli": "eadgan_tpu_torch.cli.generate_image", "checkpoint": "generator_0.pt",
+          "grids": 7})
+    return launches
 
 
 RP_KEYS = ("d_loss", "g_loss", "cat_loss", "cont_loss", "affine_loss", "relative_cat_loss")
@@ -665,13 +872,13 @@ def time_step(torch, pipeline, compute, dtype):
     rest of that window), two windows of 32 replays, each timed by CUDA
     events, the median over 32, with the warp's launches a replay."""
     from eadgan_tpu_torch.ops import stn_cuda
-    from eadgan_tpu_torch.utils.profiler import build_step, chained_replays, first_batch
+    from eadgan_tpu_torch.utils.profiler import build_step, chained_replays, step_args
 
     batch = 128
     state, step, data, prep = build_step(pipeline, batch, dtype)
-    imgs = first_batch(data, prep, batch)
+    args = step_args(data, prep, batch)
     for _ in range(5):
-        step(state, imgs)
+        step(state, *args)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     events = []
@@ -680,7 +887,7 @@ def time_step(torch, pipeline, compute, dtype):
     for _ in range(30):
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         start.record()
-        _, metrics = step(state, imgs)
+        _, metrics = step(state, *args)
         end.record()
         events.append((start, end))
     torch.cuda.synchronize()
@@ -764,6 +971,56 @@ def time_warp(torch, n, h, w, c, cycles, gen, padding="border"):
     }
 
 
+def convt_macs(shapes, hw_out):
+    """Multiply-adds of a stack of transposed convs, per image: each output
+    pixel of a k4 s2 p1 layer takes 2 x 2 taps of every input channel, the
+    k4 s1 p0 first layer (1x1 -> 4x4) one tap."""
+    total = 0
+    for (cin, cout, taps), hw in zip(shapes, hw_out):
+        total += hw * hw * cout * cin * taps
+    return total
+
+
+# CelebA generator's ConvTransposes: (cin, cout, taps per output pixel), output size
+CELEBA_G_CONVT = ([(218, 1024, 1), (1024, 512, 4), (512, 256, 4), (256, 128, 4), (128, 3, 4)],
+                  [4, 8, 16, 32, 64])
+
+
+def time_inference(torch, cycles):
+    """CelebA generator inference at batch 128 by CUDA events: the float32
+    eval-mode forward (``cli.gen_imgs --quant none``) and the BatchNorm-
+    folded bf16 forward (``--quant bf16``), each beside its bound."""
+    from eadgan_tpu_torch.models import CelebaGenerator
+    from eadgan_tpu_torch.ops.quant import make_celeba_infer
+    from eadgan_tpu_torch.utils.timing import device_ms
+
+    sd, x = inference_generator(torch)
+    batch = x[0].shape[0]
+    model = CelebaGenerator()
+    model.load_state_dict(sd)
+    model = model.cuda().eval()
+    folded = make_celeba_infer(sd, compute_dtype=torch.bfloat16, device="cuda")
+
+    def f32():
+        with torch.no_grad():
+            return model(*x)
+
+    flops = 2 * convt_macs(*CELEBA_G_CONVT) * batch
+    params = sum(v.numel() for k, v in sd.items() if k.endswith((".weight", ".bias")))
+    out_bytes = batch * 3 * 64 * 64 * 4
+    records = {}
+    for name, fn, peak, wbytes in (("f32_eval", f32, F32_FLOPS_PER_S, 4),
+                                   ("bf16_folded", lambda: folded(*x), BF16_TENSOR_FLOPS_PER_S, 2)):
+        ms = device_ms(fn, 20, cycles)
+        bound_ms, bound_by = bound(params * wbytes + out_bytes, flops, peak)
+        records[name] = {"ms": ms, "img_per_s": batch / ms * 1e3, "bound_ms": bound_ms,
+                         "bound_by": bound_by, "tflop_per_s": flops / ms / 1e9}
+    record = {"inference": "celeba_generator", "batch_size": batch,
+              "gflop_per_batch": flops / 1e9, **records}
+    emit(record)
+    return record
+
+
 def phase_timing(torch, errs, probe):
     """Kernel records for the ``kernels`` line; the fused conv's kernel
     and library times are those its probe measured on the main path."""
@@ -776,7 +1033,8 @@ def phase_timing(torch, errs, probe):
     # the train steps at B=128, f32 (TF32 off) and bf16
     steps = [time_step(torch, pipeline, compute, dtype) for pipeline, compute, dtype in (
         ("celeba", "f32", None), ("celeba", "bf16", torch.bfloat16), ("rp", "f32", None),
-        ("rp", "bf16", torch.bfloat16), ("rp_color", "f32", None))]
+        ("rp", "bf16", torch.bfloat16), ("rp_color", "f32", None), ("mnist", "f32", None),
+        ("mnist", "bf16", torch.bfloat16), ("approximator", "f32", None))]
 
     cycles = sleep_cycles_per_ms()
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -786,32 +1044,47 @@ def phase_timing(torch, errs, probe):
     warp = time_warp(torch, 128, 64, 64, 3, cycles, gen)
     warp_c1 = time_warp(torch, 128, 64, 64, 1, cycles, gen)
     warp_c1_zeros = time_warp(torch, 128, 64, 64, 1, cycles, gen, padding="zeros")
-    emit({"warp_timing": warp, "warp_timing_c1": warp_c1, "warp_timing_c1_zeros": warp_c1_zeros})
-    # the rp step's warps against its time (gray: C = 1, colored: C = 3)
+    # the MNIST step's shape, which the TPU also took through its pair kernel
+    warp_mnist = time_warp(torch, 128, 32, 32, 1, cycles, gen)
+    emit({"warp_timing": warp, "warp_timing_c1": warp_c1, "warp_timing_c1_zeros": warp_c1_zeros,
+          "warp_timing_mnist": warp_mnist})
+    time_inference(torch, cycles)
+    # the rp and MNIST steps' warps against their time (gray: C = 1,
+    # colored: C = 3, MNIST: 32x32)
     for record in steps:
-        if record["step"].startswith("rp"):
-            one = warp if record["step"].startswith("rp_color") else warp_c1
+        if record["step"].startswith(("rp", "mnist")):
+            one = {"rp_color": warp, "rp": warp_c1, "mnist": warp_mnist}[
+                record["step"].rsplit("_", 1)[0]]
             record["warp_share_of_step"] = (record["warp_launches_per_step"] * one["ms"]
                                             / record["median_ms_cuda_events"])
             record["chained_warp_share_of_step"] = (record["chained_warp_launches_per_step"]
                                                     * one["ms"] / record["chained_ms_cuda_events"])
         emit(record)
+    keys = ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "wrapper_call_ms_host_clock", "wrapper_enqueue_ms_host_clock")
+    # one CUDA kernel replaces both Pallas bodies: the TPU took _kernel for
+    # N odd or C * W > 128 (CelebA, colored dSprites) and _kernel_pair
+    # otherwise (gray dSprites, MNIST); each entry reads its own paths
     warp_kernel = {
         "name": "warp_affine",
         "route": "cuda",
         "source": "eadgan_tpu_torch/csrc/warp_affine.cu",
         "replaces": "eadgan_tpu/ops/stn_pallas.py:50",
-        "also_replaces": "eadgan_tpu/ops/stn_pallas.py:116",
         "launches": None,
         "max_abs_err": errs["warp_affine"],
-        **{k: warp[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                                "wrapper_call_ms_host_clock", "wrapper_enqueue_ms_host_clock")},
-        **{f"c1_{k}": warp_c1[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "library_ms",
-                                           "wrapper_call_ms_host_clock",
-                                           "wrapper_enqueue_ms_host_clock")},
-        **{f"c1_zeros_{k}": warp_c1_zeros[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms",
-                                                       "wrapper_call_ms_host_clock",
-                                                       "wrapper_enqueue_ms_host_clock")},
+        **{k: warp[k] for k in keys},
+    }
+    pair_kernel = {
+        "name": "warp_affine_pair",
+        "route": "cuda",
+        "source": "eadgan_tpu_torch/csrc/warp_affine.cu",
+        "replaces": "eadgan_tpu/ops/stn_pallas.py:116",
+        "launches": None,
+        "max_abs_err": errs["warp_affine_pair"],
+        **{k: warp_c1[k] for k in keys},
+        **{f"zeros_{k}": warp_c1_zeros[k] for k in keys[1:]},
+        **{f"mnist_{k}": warp_mnist[k] for k in keys},
+        "mnist_max_abs_err": errs["warp_affine_pair_mnist"],
     }
 
     # the fused conv at its main path's shape: its plain version, bound and
@@ -842,7 +1115,7 @@ def phase_timing(torch, errs, probe):
         "plain_elem": probe["plain_elem"],
     }
     emit({"fused_conv_timing": conv_kernel})
-    return [warp_kernel, conv_kernel]
+    return [warp_kernel, pair_kernel, conv_kernel]
 
 
 def main() -> None:
@@ -856,26 +1129,38 @@ def main() -> None:
     phase_environment(torch)
     print("== phase 2: kernels vs plain versions on the card", flush=True)
     errs = phase_kernel_vs_plain(torch)
-    print("== phase 3: train steps, CPU vs CUDA (CelebA; dSprites pxy and rp), chained vs per step",
-          flush=True)
+    print("== phase 3: train steps, CPU vs CUDA (CelebA; dSprites pxy and rp; MNIST and its "
+          "approximator), chained vs per step, folded generator vs eval", flush=True)
     phase_step_parity(torch)
     phase_step_parity_dsprites(torch)
+    phase_step_parity_mnist(torch)
     phase_chain_parity(torch)
-    print("== phase 4: main paths (the CelebA and dSprites trainers, then the fused conv's probe)",
-          flush=True)
-    warp_by_path = {"celeba": phase_trainer(torch)["warp_affine"], **phase_dsprites_trainers(torch)}
-    launches = {"warp_affine": sum(warp_by_path.values())}
+    phase_infer_parity(torch)
+    print("== phase 4: main paths (the CelebA trainer and gen_imgs, the dSprites trainers, the "
+          "MNIST pipeline and generate_image, then the fused conv's probe)", flush=True)
+    warp_by_path = {"celeba": phase_trainer(torch)["warp_affine"], **phase_dsprites_trainers(torch),
+                    "mnist": phase_mnist_trainers(torch)}
     probe_launches, probe = phase_probe(torch)
-    launches.update(probe_launches)
     print("== phase 5: timing", flush=True)
     kernels = phase_timing(torch, errs, probe)
+    # the warp's paths by the Pallas body the TPU took there: _kernel for
+    # C * W > 128 (CelebA, colored dSprites), _kernel_pair otherwise
+    paths = {"warp_affine": ("celeba", "pxy_color", "rp_color"),
+             "warp_affine_pair": ("pxy", "rp", "rp_resumed_bf16", "rp_long", "mnist")}
+    check(sorted(p for v in paths.values() for p in v) == sorted(warp_by_path),
+          f"warp paths {sorted(warp_by_path)}")
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        if k["name"] in paths:
+            by_path = {p: warp_by_path[p] for p in paths[k["name"]]}
+            k["launches"] = sum(by_path.values())
+            k["launches_by_path"] = by_path
+        else:
+            k.update(launches=probe_launches[k["name"]])
         check(k["launches"] > 0, f"{k['name']} was not launched on its main path")
-        if k["name"] == "warp_affine":
-            k["launches_by_path"] = warp_by_path
-            # from the gray rp CLI's run, counted from 0 just before it
+        if k["name"] == "warp_affine_pair":
+            # from the gray rp and MNIST CLIs' runs, each counted from 0 just before it
             k["launches_per_rp_step"] = (warp_by_path["rp"] - RP_GRID_WARPS) / RP_STEPS
+            k["launches_per_mnist_step"] = (warp_by_path["mnist"] - MNIST_GRID_WARPS) / MNIST_STEPS
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     emit({"kernels": kernels})
     print(nvidia_smi_line(), flush=True)

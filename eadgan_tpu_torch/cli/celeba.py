@@ -18,7 +18,13 @@ import os
 
 import torch
 
-from eadgan_tpu_torch.cli.common import add_adam_args, add_run_args, maybe_resume, resolve_compute_dtype
+from eadgan_tpu_torch.cli.common import (
+    add_adam_args,
+    add_run_args,
+    disable_tf32,
+    maybe_resume,
+    resolve_compute_dtype,
+)
 from eadgan_tpu_torch.data import load_image_folder
 from eadgan_tpu_torch.ops import warp_affine
 from eadgan_tpu_torch.sample.figures import celeba_training_grids
@@ -55,6 +61,7 @@ def main(argv=None) -> None:
     add_run_args(parser)
     opt = parser.parse_args(argv)
     print(opt)
+    disable_tf32()
     device = platform_device()
 
     config = CelebaConfig(

@@ -1,11 +1,15 @@
-"""Shared CLI plumbing: flag definitions, the compute type and resume.
+"""Shared CLI plumbing: flag definitions, the compute type, the float32
+matmul mode and resume.
 
 PyTorch counterpart of part of ``eadgan_tpu/cli/common.py``.  The device
 is chosen by ``utils.device.platform_device`` (``EADGAN_PLATFORM=cpu``
-for the CPU, the CUDA card otherwise).  The flags whose machinery
-belongs to later slices of the port (``--data_parallel``, ``--zero_opt``,
-``--watchdog``, ``--preempt_save``, ``--profile_dir``, ``--no_download``)
-are not defined, so argparse rejects them.
+for the CPU, the CUDA card otherwise).  Every CLI calls
+:func:`disable_tf32` before it picks the device, so its float32 convs
+and matrix products run in full float32, the mode the CPU-vs-card gates
+check (torch's default lets cuDNN convolve in TF32).  The flags whose
+machinery belongs to later slices of the port (``--data_parallel``,
+``--zero_opt``, ``--watchdog``, ``--preempt_save``, ``--profile_dir``,
+``--no_download``) are not defined, so argparse rejects them.
 """
 
 from __future__ import annotations
@@ -17,7 +21,22 @@ import torch
 
 from eadgan_tpu_torch.train.checkpoint import restore_latest, restore_train_state
 
-__all__ = ["add_adam_args", "add_run_args", "maybe_resume", "resolve_compute_dtype"]
+__all__ = [
+    "add_adam_args",
+    "add_run_args",
+    "disable_tf32",
+    "maybe_resume",
+    "resolve_compute_dtype",
+]
+
+
+def disable_tf32() -> None:
+    """Run float32 convolutions (cuDNN) and matrix products (cuBLAS) in
+    full float32, never TF32.  Torch allows TF32 in cuDNN convolutions by
+    default; the CPU-vs-card step gates, the card tests and the timings
+    all run with it off, so the CLIs do too.  Safe without a card."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
 
 
 def add_adam_args(parser: argparse.ArgumentParser, lr: float) -> None:
@@ -51,7 +70,7 @@ def add_run_args(parser: argparse.ArgumentParser) -> None:
         "--chain", type=_positive_int, default=32,
         help="train steps per window: on the card, the step is captured once as a CUDA graph "
         "and each window replays it this many times (up to the next sample/checkpoint step), "
-        "gathering every batch on the card from the resident uint8 dataset; 1 = one eagerly "
+        "gathering every batch on the card from the resident dataset; 1 = one eagerly "
         "launched step per batch, gathered on the host (debugging)",
     )
     parser.add_argument(

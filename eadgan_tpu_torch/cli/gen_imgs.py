@@ -1,0 +1,75 @@
+"""CelebA inference CLI (PyTorch/CUDA): render the c1..c8 sweep grids
+from a trained checkpoint.
+
+``python -m eadgan_tpu_torch.cli.gen_imgs`` — counterpart of ``python -m
+eadgan_tpu.cli.gen_imgs``.  Reads ``generator_state_dict`` from the
+port's own ``checkpoint_%d.tar`` (``--checkpoint``,
+``checkpoint_600000.tar`` by default; written by ``cli.celeba``) and
+writes 10x10 grids into ``<out_dir>/varying_c1..8/`` on the CUDA card
+(``EADGAN_PLATFORM=cpu`` for the CPU).  ``--quant none`` runs the
+generator's eval-mode forward in float32; ``--quant bf16`` the
+BatchNorm-folded bf16 forward (``ops/quant.py``).  ``--quant int8`` is
+not ported yet.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import numpy as np
+import torch
+
+from eadgan_tpu_torch.cli.common import disable_tf32
+from eadgan_tpu_torch.cli.generate_image import eval_apply
+from eadgan_tpu_torch.models import CelebaGenerator
+from eadgan_tpu_torch.ops.quant import make_celeba_infer
+from eadgan_tpu_torch.sample.figures import celeba_inference_grids
+from eadgan_tpu_torch.utils import platform_device
+
+
+def folded_apply(state_dict, device):
+    """Numpy (z, labels, code) in, NHWC numpy images out: the BN-folded
+    bf16 forward on ``device``."""
+    fwd = make_celeba_infer(state_dict, quant="none", compute_dtype=torch.bfloat16, device=device)
+
+    def apply(*inputs):
+        out = fwd(*[torch.as_tensor(np.asarray(x), device=device) for x in inputs])
+        return out.permute(0, 2, 3, 1).cpu().numpy()
+
+    return apply
+
+
+def main(argv=None) -> None:
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--checkpoint", type=str, default="checkpoint_600000.tar")
+    parser.add_argument("--out_dir", type=str, default="images")
+    parser.add_argument("--batches_done", type=int, default=0)
+    parser.add_argument(
+        "--quant", choices=["none", "bf16", "int8"], default="none",
+        help="inference path: none = the float32 eval-mode forward; bf16 = the BatchNorm-folded "
+        "bf16 forward; int8 = quantized mid layers (not ported yet)",
+    )
+    opt = parser.parse_args(argv)
+    print(opt)
+    if opt.quant == "int8":
+        raise SystemExit(
+            "--quant int8 is not ported yet (ROADMAP.md, section 1, item 9: interop CLIs and "
+            "int8 serving); use --quant none or --quant bf16"
+        )
+    disable_tf32()
+    device = platform_device()
+
+    checkpoint = torch.load(opt.checkpoint, map_location="cpu", weights_only=True)
+    state_dict = checkpoint["generator_state_dict"]
+    if opt.quant == "bf16":
+        apply_g = folded_apply(state_dict, device)
+    else:
+        model = CelebaGenerator()
+        model.load_state_dict(state_dict)
+        apply_g = eval_apply(model, device)
+    celeba_inference_grids(apply_g, opt.out_dir, opt.batches_done)
+    print(f"wrote grids under {opt.out_dir}/varying_c1..8/")
+
+
+if __name__ == "__main__":
+    main()

@@ -20,7 +20,7 @@ import os
 
 import torch
 
-from eadgan_tpu_torch.cli.common import add_adam_args, add_run_args, maybe_resume
+from eadgan_tpu_torch.cli.common import add_adam_args, add_run_args, disable_tf32, maybe_resume
 from eadgan_tpu_torch.data import load_dsprites
 from eadgan_tpu_torch.sample.figures import pxy_grids
 from eadgan_tpu_torch.train.checkpoint import save_model, save_train_state
@@ -55,6 +55,7 @@ def align_sample(model, img: torch.Tensor, seed: int, config: PxyConfig):
 def main(argv=None, colored: bool = False) -> None:
     opt = build_parser(colored).parse_args(argv)
     print(opt)
+    disable_tf32()
     device = platform_device()
 
     config = PxyConfig.for_dataset(

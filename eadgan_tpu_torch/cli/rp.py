@@ -21,7 +21,13 @@ import os
 
 import torch
 
-from eadgan_tpu_torch.cli.common import add_adam_args, add_run_args, maybe_resume, resolve_compute_dtype
+from eadgan_tpu_torch.cli.common import (
+    add_adam_args,
+    add_run_args,
+    disable_tf32,
+    maybe_resume,
+    resolve_compute_dtype,
+)
 from eadgan_tpu_torch.data import load_dsprites
 from eadgan_tpu_torch.sample.figures import sprites_training_grids
 from eadgan_tpu_torch.train.checkpoint import restore_model, save_model, save_train_state
@@ -73,6 +79,7 @@ def render_pair(pxy, img: torch.Tensor, seed: int, config: SpritesGanConfig):
 def main(argv=None, colored: bool = False) -> None:
     opt = build_parser(colored).parse_args(argv)
     print(opt)
+    disable_tf32()
     device = platform_device()
 
     # colored: D follows --lr (colored_dSprites/rp_color.py:275); gray

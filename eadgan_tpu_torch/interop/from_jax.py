@@ -35,6 +35,10 @@ __all__ = [
     "sprites_generator_from_flax",
     "sprites_discriminator_from_flax",
     "sprites_encoder_from_flax",
+    "mnist_generator_from_flax",
+    "mnist_discriminator_from_flax",
+    "mnist_encoder_from_flax",
+    "approximator_from_flax",
 ]
 
 StateDict = Dict[str, torch.Tensor]
@@ -173,4 +177,55 @@ def sprites_encoder_from_flax(variables) -> StateDict:
     _dense(sd, "fc2.0", variables, "SNDense_1", sn=True)
     _dense(sd, "cat_layer.0", variables, "SNDense_2", sn=True)
     _dense(sd, "cont_layer.0", variables, "SNDense_3", sn=True)
+    return sd
+
+
+def _mnist_flat(img_size: int) -> Tuple[int, int, int]:
+    """(C, H, W) of the MNIST trunks' last map."""
+    return (128, img_size // 16, img_size // 16)
+
+
+def mnist_generator_from_flax(variables) -> StateDict:
+    """``eadgan_tpu.models.MnistGenerator`` -> the port's
+    ``MnistGenerator`` (its fc output is viewed NCHW on both sides: no
+    permutation)."""
+    sd: StateDict = {}
+    _dense(sd, "l1.0", variables, "TorchDense_0")
+    _batch_norm(sd, "conv_blocks.0", variables, "TorchBatchNorm_0")
+    for i, (conv, bn) in enumerate(((2, 3), (6, 7))):
+        _conv(sd, f"conv_blocks.{conv}", variables, f"TorchConv_{i}")
+        _batch_norm(sd, f"conv_blocks.{bn}", variables, f"TorchBatchNorm_{i + 1}")
+    _conv(sd, "conv_blocks.9", variables, "TorchConv_2")
+    return sd
+
+
+def mnist_discriminator_from_flax(variables, img_size: int = 32) -> StateDict:
+    """``eadgan_tpu.models.MnistDiscriminator`` -> the port's
+    ``MnistDiscriminator``."""
+    sd: StateDict = {}
+    for i, seq in enumerate((0, 2, 4, 6)):
+        _conv(sd, f"conv_blocks.{seq}", variables, f"SNConv_{i}", sn=True)
+    _dense(sd, "adv_layer.0", variables, "SNDense_0", sn=True, flatten_chw=_mnist_flat(img_size))
+    return sd
+
+
+def mnist_encoder_from_flax(variables, img_size: int = 32) -> StateDict:
+    """``eadgan_tpu.models.MnistEncoder`` -> the port's ``MnistEncoder``."""
+    sd: StateDict = {}
+    for i, seq in enumerate((0, 2, 5, 8)):
+        _conv(sd, f"conv_blocks.{seq}", variables, f"SNConv_{i}", sn=True)
+    for i, seq in enumerate((4, 7, 10)):
+        _batch_norm(sd, f"conv_blocks.{seq}", variables, f"TorchBatchNorm_{i}")
+    flat = _mnist_flat(img_size)
+    for i, head in enumerate(("aux_layer", "latent_layer", "noise_layer")):
+        _dense(sd, f"{head}.0", variables, f"SNDense_{i}", sn=True, flatten_chw=flat)
+    return sd
+
+
+def approximator_from_flax(variables) -> StateDict:
+    """``eadgan_tpu.models.AffineApproximator`` -> the port's
+    ``AffineApproximator``."""
+    sd: StateDict = {}
+    for i, seq in enumerate((0, 2, 4, 6, 8)):
+        _dense(sd, f"fc_block.{seq}", variables, f"TorchDense_{i}")
     return sd

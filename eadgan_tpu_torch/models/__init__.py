@@ -1,5 +1,6 @@
 """Model families (PyTorch counterpart of ``eadgan_tpu.models``)."""
 
+from eadgan_tpu_torch.models.approximator import AffineApproximator
 from eadgan_tpu_torch.models.celeba import CelebaDiscriminator, CelebaGenerator
 from eadgan_tpu_torch.models.dsprites import (
     SpritesDiscriminator,
@@ -14,10 +15,15 @@ from eadgan_tpu_torch.models.layers import (
     TorchDense,
     no_stat_updates,
 )
+from eadgan_tpu_torch.models.mnist import MnistDiscriminator, MnistEncoder, MnistGenerator
 
 __all__ = [
+    "AffineApproximator",
     "CelebaGenerator",
     "CelebaDiscriminator",
+    "MnistGenerator",
+    "MnistDiscriminator",
+    "MnistEncoder",
     "SpritesEncoderPxy",
     "SpritesGenerator",
     "SpritesDiscriminator",

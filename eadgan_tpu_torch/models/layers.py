@@ -25,7 +25,10 @@ would handle differently:
   variance with the biased value, where torch's would use the unbiased.
 
 They update their state in training mode only, and not inside
-:func:`no_stat_updates`.  Layout is NCHW.
+:func:`no_stat_updates` (a BatchNorm built with ``always_batch_stats``,
+the MNIST encoder's, normalizes with batch statistics and updates them
+in eval mode too).  :func:`upsample_nearest` is torch's
+``nn.Upsample(scale_factor=2)``.  Layout is NCHW.
 """
 
 from __future__ import annotations
@@ -43,7 +46,9 @@ __all__ = [
     "SNConv",
     "SNDense",
     "TorchBatchNorm",
+    "UpsampleNearest",
     "no_stat_updates",
+    "upsample_nearest",
 ]
 
 _SN_EPS = 1e-12
@@ -179,15 +184,19 @@ class TorchBatchNorm(nn.Module):
     Training mode normalizes with the batch mean and the biased batch
     variance and updates ``running = 0.9 * running + 0.1 * batch`` with
     both (unless :func:`no_stat_updates` is active).  Eval mode uses the
-    running statistics, like torch ``.eval()``.  Statistics are float32;
-    the output keeps the input's dtype.  ``state_dict`` keys are those of
-    ``nn.BatchNorm2d``.
+    running statistics, like torch ``.eval()``, unless
+    ``always_batch_stats``: then eval mode is training mode, as the JAX
+    package's BatchNorm called without ``use_running_average`` is (the
+    MNIST encoder's).  Statistics are float32; the output keeps the
+    input's dtype.  ``state_dict`` keys are those of ``nn.BatchNorm2d``.
     """
 
-    def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.9):
+    def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.9,
+                 always_batch_stats: bool = False):
         super().__init__()
         self.eps = eps
         self.momentum = momentum
+        self.always_batch_stats = always_batch_stats
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -196,7 +205,7 @@ class TorchBatchNorm(nn.Module):
         self.update_stats = True
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.training:
+        if not (self.training or self.always_batch_stats):
             return F.batch_norm(
                 x, self.running_mean, self.running_var, self.weight, self.bias,
                 training=False, eps=self.eps,
@@ -214,6 +223,23 @@ class TorchBatchNorm(nn.Module):
         mul = torch.rsqrt(var + self.eps) * self.weight
         y = (xf - mean[None, :, None, None]) * mul[None, :, None, None]
         return (y + self.bias[None, :, None, None]).to(x.dtype)
+
+
+def upsample_nearest(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
+    """Nearest-neighbour upsampling of an NCHW batch by ``factor`` along H
+    and W (each pixel repeated ``factor`` x ``factor`` times)."""
+    return F.interpolate(x, scale_factor=factor, mode="nearest")
+
+
+class UpsampleNearest(nn.Module):
+    """:func:`upsample_nearest` as a module (no parameters)."""
+
+    def __init__(self, factor: int = 2):
+        super().__init__()
+        self.factor = factor
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return upsample_nearest(x, self.factor)
 
 
 @contextlib.contextmanager

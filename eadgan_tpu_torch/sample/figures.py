@@ -1,6 +1,11 @@
-"""Training sample grids: copies of ``celeba_training_grids``,
-``sprites_training_grids`` and ``pxy_grids`` from the JAX package's
-``sample/figures.py`` (numpy and PIL only).
+"""Sample grids: copies of the JAX package's ``sample/figures.py`` (numpy
+and PIL only), the training grids of every pipeline
+(``mnist_training_grids``, ``celeba_training_grids``,
+``sprites_training_grids``, ``pxy_grids``) and the inference sweeps
+(``mnist_inference_grids``, ``celeba_inference_grids``), with the
+reference's quirks: the MNIST c5-c7 training sweeps vary their own dims
+but the dSprites c5-c7 ones all re-vary code 0; the inference sweeps
+pair code dims.
 
 The generator is passed as an ``apply`` callable mapping numpy latent
 inputs to NHWC images, so any weights snapshot works.
@@ -12,7 +17,14 @@ import numpy as np
 
 from eadgan_tpu_torch.sample.grid import save_image
 
-__all__ = ["celeba_training_grids", "sprites_training_grids", "pxy_grids"]
+__all__ = [
+    "mnist_training_grids",
+    "mnist_inference_grids",
+    "celeba_training_grids",
+    "celeba_inference_grids",
+    "sprites_training_grids",
+    "pxy_grids",
+]
 
 
 def _sweep(code_dim, dims, values):
@@ -22,6 +34,53 @@ def _sweep(code_dim, dims, values):
     for d in dims:
         c[:, d] = values
     return c
+
+
+def mnist_training_grids(
+    apply_g, real_img, scaled_img, out_dir, batches_done, n_row=10,
+    latent_dim=62, n_classes=10, code_dim=7,
+):
+    """MNIST/EAD-GAN_rpqmnxy.py:276-330: static digits grid + original +
+    scaled + varying_c1..c7 (column-wise ramp -2..2, zero z)."""
+    rng = np.random.default_rng(batches_done)
+    n = n_row * n_row
+    static_label = np.eye(n_classes, dtype=np.float32)[
+        np.repeat(np.arange(n_row), n_row) % n_classes
+    ]
+    z_random = rng.normal(0, 1, (n, latent_dim)).astype(np.float32)
+    zeros_z = np.zeros((n, latent_dim), np.float32)
+    zeros_c = np.zeros((n, code_dim), np.float32)
+
+    static = apply_g(z_random, static_label, zeros_c)
+    save_image(np.asarray(static), f"{out_dir}/static/{batches_done}.png", nrow=n_row)
+    save_image(np.asarray(real_img), f"{out_dir}/original/{batches_done}.png", nrow=n_row)
+    save_image(np.asarray(scaled_img), f"{out_dir}/scaled/{batches_done}.png", nrow=n_row)
+
+    ramp = np.tile(np.linspace(-2, 2, n_row), n_row).astype(np.float32)
+    for k in range(code_dim):
+        c = _sweep(code_dim, [k], ramp)
+        sample = apply_g(zeros_z, static_label, c)
+        save_image(
+            np.asarray(sample), f"{out_dir}/varying_c{k+1}/{batches_done}.png", nrow=n_row
+        )
+
+
+def mnist_inference_grids(apply_g, out_dir, batches_done=0, n_row=10):
+    """MNIST/generate_image.py:98-141: negated column ramp; c2 sweep
+    varies code dims 1 and 2 jointly."""
+    n = n_row * n_row
+    static_label = np.eye(10, dtype=np.float32)[
+        np.repeat(np.arange(n_row), n_row) % 10
+    ]
+    zeros_z = np.zeros((n, 62), np.float32)
+    ramp = -np.tile(np.linspace(-1, 1, n_row), n_row).astype(np.float32)
+    sweeps = [[0], [1, 2], [2], [3], [4], [5], [6]]
+    for k, dims in enumerate(sweeps):
+        c = _sweep(7, dims, ramp)
+        sample = apply_g(zeros_z, static_label, c)
+        save_image(
+            np.asarray(sample), f"{out_dir}/varying_c{k+1}/{batches_done}.png", nrow=n_row
+        )
 
 
 def celeba_training_grids(
@@ -47,6 +106,22 @@ def celeba_training_grids(
     ramp = np.repeat(np.linspace(-1, 1, n_row), n_row).astype(np.float32)
     for k in range(code_dim):
         c = _sweep(code_dim, [k], ramp)
+        sample = apply_g(zeros_z, static_label, c)
+        save_image(
+            np.asarray(sample), f"{out_dir}/varying_c{k+1}/{batches_done}.png", nrow=n_row
+        )
+
+
+def celeba_inference_grids(apply_g, out_dir, batches_done=0, n_row=10):
+    """celebA/gen_imgs.py:157-198: row-wise ramp; c2 varies dims 1+2 and
+    c4 varies dims 3+4 jointly."""
+    n = n_row * n_row
+    static_label = np.eye(10, dtype=np.float32)[np.tile(np.arange(n_row), n_row) % 10]
+    zeros_z = np.zeros((n, 200), np.float32)
+    ramp = np.repeat(np.linspace(-1.0, 1.0, n_row), n_row).astype(np.float32)
+    sweeps = [[0], [1, 2], [2], [3, 4], [4], [5], [6], [7]]
+    for k, dims in enumerate(sweeps):
+        c = _sweep(8, dims, ramp)
         sample = apply_g(zeros_z, static_label, c)
         save_image(
             np.asarray(sample), f"{out_dir}/varying_c{k+1}/{batches_done}.png", nrow=n_row

@@ -1,8 +1,9 @@
 """The chained engine (CUDA-graph replay) against the per-step engine.
 
 ``python -m eadgan_tpu_torch.tools.chain_check [--pipeline celeba|pxy|
-pxy_color|rp|rp_color] [--steps 8] [--chain 4] [--batch 128]`` builds one
-pipeline's f32 train state and synthetic uint8 dataset
+pxy_color|rp|rp_color|mnist] [--steps 8] [--chain 4] [--batch 128]`` builds
+one pipeline's f32 train state and synthetic dataset (uint8; MNIST's
+float32)
 (``utils/profiler.py::build_step``) and runs ``--steps`` steps of
 ``train/engine.py::run_epochs`` three times, each from a copy of that
 state, with the pipeline's batch arguments and events every ``--chain``
@@ -45,7 +46,7 @@ from eadgan_tpu_torch.utils.profiler import PIPELINES, build_step
 
 __all__ = ["WARPS_PER_STEP", "clone_state", "run_check", "main"]
 
-WARPS_PER_STEP = {"celeba": 1, "pxy": 1, "pxy_color": 1, "rp": 3, "rp_color": 3}
+WARPS_PER_STEP = {"celeba": 1, "pxy": 1, "pxy_color": 1, "rp": 3, "rp_color": 3, "mnist": 1}
 
 
 def clone_state(state):

@@ -7,10 +7,10 @@ trip serves K steps.  On the card the host's cost is issuing the step's
 ``torch.cuda.CUDAGraph`` of the train step, captured once per run and
 replayed K times per window:
 
-- the dataset stays resident on the card as uint8, and each step's
-  batch is gathered, flipped and normalized inside the graph
-  (:func:`normalize_prepare`), from int32 row indices copied in once a
-  window;
+- the dataset stays resident on the card as it is, uint8 images or
+  MNIST's float32 ones, and each step's batch is gathered, flipped and
+  normalized inside the graph (:func:`normalize_prepare`), from int32
+  row indices copied in once a window;
 - the step's metrics are packed into one (M,) float32 tensor, copied
   into row i of a (K, M) window buffer after replay i, so a window
   returns its metrics in one tensor;
@@ -152,7 +152,8 @@ def normalize_prepare(scale: float, shift: float, flip: bool = False,
                       add_channel: bool = False):
     """The step's batch gathered from the dataset resident on the card,
     in the JAX function's op order (its ``gather=True`` form): ``consts =
-    (dataset,)`` is the uint8 dataset and a row carries int32 indices
+    (dataset,)`` is the dataset, uint8 or float32 (MNIST, taken with
+    scale 1 and shift 0), and a row carries int32 indices
     (``index_select``).  With ``flip``, a bool mask row mirrors those
     images along the width while still uint8 (``torch.where``, no host
     sync), after the channel axis of 2-D images is added; then

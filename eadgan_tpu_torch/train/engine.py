@@ -13,8 +13,9 @@ batches:
 * the **chained engine** (``chain > 1``, the CLIs' default) runs windows
   of up to ``chain`` steps through ``train/chain.py``: on the card, one
   CUDA graph of the step replayed per step, each batch gathered on the
-  card from the resident uint8 dataset; side effects run at the window
-  ends that ``plan_windows`` puts on the event steps.
+  card from the resident dataset (uint8 images, or MNIST's float32
+  images already in [-1, 1]); side effects run at the window ends that
+  ``plan_windows`` puts on the event steps.
 
 A run resumed at a step inside an epoch starts from fresh generators, as
 the JAX engines do: the resumed epoch draws a fresh permutation and runs
@@ -57,7 +58,8 @@ def epoch_batches(
     random_flip: bool = False,
 ):
     """Yield ``(epoch, host_batch)`` in training order from step
-    ``start_step`` on: for each epoch a permutation of the uint8 ``data``,
+    ``start_step`` on: for each epoch a permutation of ``data`` (uint8,
+    or float32 taken with scale 1 and shift 0, which leave it as it is),
     cut into full batches (the ragged tail is dropped), each gathered as
     float32 ``x * scale + shift`` and, with ``random_flip``, mirrored
     along the width where a fresh draw is below 0.5.  A 3-D (N, H, W)
@@ -174,9 +176,10 @@ def _run_epochs_chained(
     train.chain.ChainedStep` of ``step_fn``, after
     ``eadgan_tpu/train/engine.py::_run_epochs_chained``.
 
-    The uint8 dataset is staged on ``device`` once (real CelebA, 2.4 GB,
-    and real dSprites, 2.9 GB, take a few percent of an 80 GB card; a
-    dataset larger than the card's free memory raises); a window then
+    The dataset is staged on ``device`` once, as it is: uint8 images
+    (real CelebA, 2.4 GB, and real dSprites, 2.9 GB, take a few percent
+    of an 80 GB card) or float32 ones (real MNIST at 32x32, 246 MB); a
+    dataset larger than the card's free memory raises.  A window then
     carries only its (k, B) int32 row indices, plus the (k, B) flip
     masks, copied in once from pinned host memory, and the batches are
     gathered on the card.
@@ -208,8 +211,8 @@ def _run_epochs_chained(
         free, _ = torch.cuda.mem_get_info(device)
         if data.nbytes > free:
             raise RuntimeError(
-                f"the {data.nbytes / 2**30:.2f} GiB uint8 dataset does not fit in the card's "
-                f"{free / 2**30:.2f} GiB of free memory, where the chained engine keeps it "
+                f"the {data.nbytes / 2**30:.2f} GiB {data.dtype} dataset does not fit in the "
+                f"card's {free / 2**30:.2f} GiB of free memory, where the chained engine keeps it "
                 "(--chain 1 runs the per-step path, which copies one batch at a time)"
             )
     prepare = normalize_prepare(scale, shift, flip=random_flip, add_channel=data.ndim == 3)

@@ -1,12 +1,18 @@
-"""Stage-1 pretraining: the pxy alignment encoders (gray and colored).
+"""Stage-1 pretraining: the affine approximator (MNIST) and the pxy
+alignment encoders (dSprites, gray and colored).
 
-PyTorch counterpart of the pxy half of ``eadgan_tpu/train/pretrain.py``
-(the approximator belongs to MNIST, a later slice).  A self-supervised
-step: warp the real batch by a sampled (p, x, y) code (colored: also
-tint it by sampled RGB gains), encode both images, recover the relative
-code in closed form and regress it on the sampled code with an MSE.  The
-warp pads with ``zeros`` when colored and ``border`` when gray, as the
-JAX step does.
+PyTorch counterpart of ``eadgan_tpu/train/pretrain.py``.  Two steps:
+
+* :func:`make_approximator_step`: random rpqmnxy codes, their matrices
+  built analytically and flattened to 2x3, and the MLP regressed on the
+  *physical parameters* of the codes (not the codes) with an MSE; one
+  Adam;
+* :func:`make_pxy_step`: a self-supervised step that warps the real
+  batch by a sampled (p, x, y) code (colored: also tints it by sampled
+  RGB gains), encodes both images, recovers the relative code in closed
+  form and regresses it on the sampled code with an MSE.  The warp pads
+  with ``zeros`` when colored and ``border`` when gray, as the JAX step
+  does.
 """
 
 from __future__ import annotations
@@ -14,21 +20,75 @@ from __future__ import annotations
 import torch
 
 from eadgan_tpu_torch.losses import mse_loss
-from eadgan_tpu_torch.models import SpritesEncoderPxy
+from eadgan_tpu_torch.models import AffineApproximator, SpritesEncoderPxy
 from eadgan_tpu_torch.ops import warp_affine
-from eadgan_tpu_torch.train.config import PxyConfig
+from eadgan_tpu_torch.train.config import ApproximatorConfig, PxyConfig
 from eadgan_tpu_torch.train.state import EncoderTrainState, adam
 from eadgan_tpu_torch.transforms import (
     PXY,
+    RPQMNXY,
     apply_color,
     code_to_matrix,
+    code_to_params,
     color_code_to_gain,
+    flatten_matrix_2x3,
     regularize,
     regularize_color,
 )
 from eadgan_tpu_torch.utils.device import resolve_device
 
-__all__ = ["colorize", "draw_color", "init_pxy_state", "make_pxy_step", "pxy_encoder"]
+__all__ = [
+    "approximator_model",
+    "init_approximator_state",
+    "make_approximator_step",
+    "colorize",
+    "draw_color",
+    "init_pxy_state",
+    "make_pxy_step",
+    "pxy_encoder",
+]
+
+
+def approximator_model(seed: int) -> AffineApproximator:
+    """A fresh approximator (torch default init drawn from ``seed``
+    without touching the global generator), on the CPU."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        return AffineApproximator()
+
+
+def init_approximator_state(config: ApproximatorConfig, device=None, seed: int = 0) -> EncoderTrainState:
+    """A fresh approximator and its Adam on ``device`` (the CUDA card when
+    None)."""
+    device = resolve_device(device)
+    model = approximator_model(seed).to(device).train()
+    return EncoderTrainState(
+        model=model,
+        opt=adam(model.parameters(), config.lr, config.b1, config.b2, device.type == "cuda"),
+        rng=torch.Generator(device=device).manual_seed(seed),
+    )
+
+
+def make_approximator_step(config: ApproximatorConfig):
+    def step(state: EncoderTrainState, fixed=None):
+        """One regression step on ``config.batch_size`` codes drawn
+        uniform in [-1, 1) from ``state.rng``.  ``fixed`` (parity tests)
+        injects them: {"code"} (B, 7)."""
+        dev = state.rng.device
+        if fixed is not None:
+            code = torch.as_tensor(fixed["code"], dtype=torch.float32, device=dev)
+        else:
+            code = torch.rand(config.batch_size, 7, generator=state.rng, device=dev) * 2.0 - 1.0
+        target = code_to_params(RPQMNXY, code)
+        flat = flatten_matrix_2x3(code_to_matrix(RPQMNXY, code))
+        loss = mse_loss(state.model(flat), target)
+        state.opt.zero_grad(set_to_none=True)
+        loss.backward()
+        state.opt.step()
+        state.step += 1
+        return state, {"affine_loss": loss.detach()}
+
+    return step
 
 
 def pxy_encoder(colored: bool, seed: int) -> SpritesEncoderPxy:

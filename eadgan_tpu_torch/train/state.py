@@ -4,9 +4,9 @@ PyTorch counterpart of ``eadgan_tpu/train/state.py``.  A state is a plain
 object holding the models, ``torch.optim.Adam`` optimizers over
 overlapping parameter sets, the step count and a ``torch.Generator`` in
 place of the JAX ``rng``.  An info optimizer runs over two models (G and
-D for CelebA, G and E for dSprites) with moments of its own, as two torch
-optimizers over the same tensors do.  The step functions update a state
-in place; ``train/checkpoint.py`` saves whatever fields it holds.
+D for CelebA, G and E for dSprites and MNIST) with moments of its own, as
+two torch optimizers over the same tensors do.  The step functions update
+a state in place; ``train/checkpoint.py`` saves whatever fields it holds.
 """
 
 from __future__ import annotations
@@ -35,8 +35,9 @@ def adam(params, lr: float, b1: float = 0.5, b2: float = 0.999,
 
 @dataclasses.dataclass
 class GanTrainState:
-    """Adversarial-pipeline state.  ``e`` is the separate encoder and
-    ``pxy`` the frozen alignment encoder (dSprites only); ``opt_g`` is
+    """Adversarial-pipeline state.  ``e`` is the separate encoder
+    (dSprites, MNIST), ``pxy`` the frozen alignment encoder (dSprites)
+    and ``approx`` the frozen affine approximator (MNIST); ``opt_g`` is
     None for dSprites, whose G update lives in ``opt_info``."""
 
     g: nn.Module
@@ -48,11 +49,13 @@ class GanTrainState:
     step: int = 0
     e: Optional[nn.Module] = None
     pxy: Optional[nn.Module] = None
+    approx: Optional[nn.Module] = None
 
 
 @dataclasses.dataclass
 class EncoderTrainState:
-    """Single-model pretraining state (the pxy alignment encoders)."""
+    """Single-model pretraining state (the pxy alignment encoders, the
+    affine approximator)."""
 
     model: nn.Module
     opt: torch.optim.Optimizer

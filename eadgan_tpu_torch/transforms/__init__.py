@@ -25,6 +25,7 @@ from eadgan_tpu_torch.transforms.color import (
     regularize_color,
     remove_color,
 )
+from eadgan_tpu_torch.transforms.neural import flatten_matrix_2x3, regularize_neural
 
 __all__ = [
     "AffineFamily",
@@ -47,4 +48,6 @@ __all__ = [
     "regularize_color",
     "apply_color",
     "remove_color",
+    "flatten_matrix_2x3",
+    "regularize_neural",
 ]

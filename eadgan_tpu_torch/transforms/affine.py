@@ -284,8 +284,8 @@ def regularize_matrix(family: AffineFamily, rel: torch.Tensor) -> torch.Tensor:
         fn = _CLOSED_FORM[family.name]
     except KeyError:
         raise ValueError(
-            f"family {family.name!r} has no closed-form recovery; it needs "
-            "the neural approximator, which is not ported yet"
+            f"family {family.name!r} has no closed-form recovery: use "
+            "transforms.neural.regularize_neural with a trained approximator"
         ) from None
     return fn(rel)
 

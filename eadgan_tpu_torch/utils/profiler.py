@@ -1,10 +1,12 @@
 """Device-time breakdown of a train step on the card.
 
-``python -m eadgan_tpu_torch.utils.profiler [--pipeline celeba|rp|rp_color]
-[--compute bf16] [--tf32] [--chain K] [--out FILE]`` runs one pipeline's
-step at batch 128 (random weights from seed 0; CelebA on synthetic
-faces, rp, the dSprites GAN step with a fresh frozen aligner, on
-synthetic sprites; f32 unless ``--compute bf16``) under
+``python -m eadgan_tpu_torch.utils.profiler [--pipeline celeba|pxy|
+pxy_color|rp|rp_color|mnist|approximator] [--compute bf16] [--tf32]
+[--chain K] [--out FILE]`` runs one pipeline's step at batch 128 (random
+weights from seed 0; CelebA on synthetic faces, rp, the dSprites GAN
+step with a fresh frozen aligner, on synthetic sprites, MNIST with a
+fresh frozen approximator on synthetic digits, the approximator on its
+own draws; f32 unless ``--compute bf16``) under
 ``torch.profiler`` for 5 steps after a warm-up, and reports the step
 time by CUDA events, the device's busy share of the profiled window
 (summed kernel time over wall time), the kernel launches per step, the
@@ -13,7 +15,7 @@ share of the kernel time, and the kernels that take the most device
 time.  ``--chain K`` does the same for the chained engine's step: one
 eager step, the capture, then windows of K replays of the CUDA graph
 (``train/chain.py``), each gathering its batch on the card from the
-resident uint8 dataset as the CLIs' graph does, timed a window at a time
+resident dataset as the CLIs' graph does, timed a window at a time
 and profiled over one window.  ``--tf32``
 allows TF32 in convolutions and matrix products (off by default, as in
 ``chip_smoke.py``).  Needs a CUDA card.
@@ -33,30 +35,62 @@ import torch
 
 from eadgan_tpu_torch.data.celeba import _synthetic_faces
 from eadgan_tpu_torch.data.dsprites import synthetic_dsprites
+from eadgan_tpu_torch.data.mnist import normalize_mnist, synthetic_mnist
 from eadgan_tpu_torch.ops import stn_cuda
 from eadgan_tpu_torch.train.chain import make_chained_step, normalize_prepare
-from eadgan_tpu_torch.train.config import CelebaConfig, PxyConfig, SpritesGanConfig
+from eadgan_tpu_torch.train.config import (
+    ApproximatorConfig,
+    CelebaConfig,
+    MnistConfig,
+    PxyConfig,
+    SpritesGanConfig,
+)
 from eadgan_tpu_torch.train.engine import epoch_batches
 from eadgan_tpu_torch.train.gan_celeba import init_celeba_gan_state, make_celeba_gan_step
 from eadgan_tpu_torch.train.gan_dsprites import init_sprites_gan_state, make_sprites_gan_step
-from eadgan_tpu_torch.train.pretrain import init_pxy_state, make_pxy_step, pxy_encoder
+from eadgan_tpu_torch.train.gan_mnist import init_mnist_gan_state, make_mnist_gan_step
+from eadgan_tpu_torch.train.pretrain import (
+    approximator_model,
+    init_approximator_state,
+    init_pxy_state,
+    make_approximator_step,
+    make_pxy_step,
+    pxy_encoder,
+)
 
-__all__ = ["PIPELINES", "build_step", "first_batch", "chained_replays", "profile_step",
-           "sprite_warp_inputs"]
+__all__ = ["PIPELINES", "STEPS", "build_step", "first_batch", "step_args", "chained_replays",
+           "profile_step", "sprite_warp_inputs", "mnist_warp_inputs"]
 
-PIPELINES = ("celeba", "pxy", "pxy_color", "rp", "rp_color")
+# the pipelines whose step trains on a dataset (run_epochs drives them)
+PIPELINES = ("celeba", "pxy", "pxy_color", "rp", "rp_color", "mnist")
+# every step: those and the approximator's, which draws its own inputs
+STEPS = PIPELINES + ("approximator",)
 
 _WARP_KERNEL = "warp_affine_kernel"
 
 
 def build_step(pipeline: str, batch_size: int = 128, dtype=None, device="cuda"):
-    """(state, step, data, prep) of one pipeline on ``device``, weights
-    and draws from seed 0: ``data`` is a synthetic uint8 dataset (1,024
-    faces at batch 128, 8 batches; 1,500 sprites) and ``prep`` the
-    keyword arguments of ``train/engine.py::run_epochs`` that make the
-    step's batches from its rows, as the pipeline's CLI passes them.
-    ``dtype`` is the models' compute type (None: float32; the pxy
-    aligner is float32 only); rp's aligner is a fresh one."""
+    """(state, step, data, prep) of one step of ``STEPS`` on ``device``,
+    weights and draws from seed 0: ``data`` is a synthetic dataset (uint8:
+    1,024 faces at batch 128, 8 batches; 1,500 sprites; float32 in
+    [-1, 1]: 8 batches of MNIST digits) and ``prep`` the keyword
+    arguments of ``train/engine.py::run_epochs`` that make the step's
+    batches from its rows, as the pipeline's CLI passes them; both are
+    None for the approximator, whose step takes no batch.  ``dtype`` is
+    the models' compute type (None: float32; the pxy aligner and the
+    approximator are float32 only); rp's aligner and MNIST's
+    approximator are fresh ones."""
+    if pipeline == "approximator":
+        config = ApproximatorConfig(batch_size=batch_size)
+        state = init_approximator_state(config, device=device, seed=0)
+        return state, make_approximator_step(config), None, None
+    if pipeline == "mnist":
+        config = MnistConfig(batch_size=batch_size)
+        state = init_mnist_gan_state(config, approximator_model(seed=1), device=device, seed=0,
+                                     dtype=dtype)
+        data = normalize_mnist(synthetic_mnist(n=8 * batch_size, seed=0)[0], config.img_size)
+        prep = {"scale": 1.0, "shift": 0.0, "random_flip": False}
+        return state, make_mnist_gan_step(config), data, prep
     if pipeline == "celeba":
         config = CelebaConfig(batch_size=batch_size)
         state = init_celeba_gan_state(config, device=device, seed=0, dtype=dtype)
@@ -64,7 +98,7 @@ def build_step(pipeline: str, batch_size: int = 128, dtype=None, device="cuda"):
         prep = {"scale": 1.0 / 127.5, "shift": -1.0, "random_flip": True}
         return state, make_celeba_gan_step(config), data, prep
     if pipeline not in PIPELINES:
-        raise ValueError(f"unknown pipeline {pipeline!r}: expected one of {PIPELINES}")
+        raise ValueError(f"unknown pipeline {pipeline!r}: expected one of {STEPS}")
     colored = pipeline.endswith("_color")
     data = synthetic_dsprites(n_pos=5).imgs
     prep = {"scale": 1.0, "shift": 0.0, "random_flip": False}
@@ -82,6 +116,12 @@ def first_batch(data, prep: dict, batch_size: int, device="cuda") -> torch.Tenso
     """The per-step engine's first batch of ``data`` (seed 0) on ``device``."""
     _, host = next(epoch_batches(data, batch_size, 1, **prep))
     return torch.from_numpy(host).to(device)
+
+
+def step_args(data, prep, batch_size: int, device="cuda") -> tuple:
+    """The step's arguments after the state: ``(first_batch,)``, or ``()``
+    for a step without a dataset (the approximator's)."""
+    return () if data is None else (first_batch(data, prep, batch_size, device),)
 
 
 def sprite_warp_inputs(channels: int, matrices: str, device, seed: int = 0):
@@ -104,21 +144,40 @@ def sprite_warp_inputs(channels: int, matrices: str, device, seed: int = 0):
     return img.contiguous().to(device), matrix.to(device)
 
 
+def mnist_warp_inputs(device, seed: int = 0):
+    """The MNIST step's warp inputs: (128, 32, 32, 1) synthetic digits in
+    [-1, 1] and (128, 3, 3) rpqmnxy matrices on codes uniform in [-1, 1],
+    as the step draws them."""
+    from eadgan_tpu_torch.transforms import RPQMNXY, code_to_matrix
+
+    gen = torch.Generator().manual_seed(seed)
+    img = torch.from_numpy(normalize_mnist(synthetic_mnist(n=128, seed=seed)[0]))
+    matrix = code_to_matrix(RPQMNXY, torch.rand(128, 7, generator=gen) * 2 - 1)
+    return img.to(device), matrix.to(device)
+
+
 def chained_replays(state, step, data, prep: dict, batch_size: int, chain: int):
     """``run()``: one window of ``chain`` steps of the chained engine's
     step, each gathering its batch on the card from ``data`` resident
     there (random rows and flips from seed 0, the same every window), as
-    the CLIs' graph does; the chained step's eager first step, its
-    capture and the rest of that first window run here, so every step of
-    ``run()`` is a replay."""
-    rng = np.random.default_rng(0)
-    rows = np.stack([rng.choice(len(data), batch_size, replace=False) for _ in range(chain)])
-    window = [torch.from_numpy(rows.astype(np.int32)).cuda()]
-    if prep["random_flip"]:
-        window.append(torch.from_numpy(rng.random((chain, batch_size)) < 0.5).cuda())
-    consts = (torch.from_numpy(data).cuda(),)
-    prepare = normalize_prepare(prep["scale"], prep["shift"], flip=prep["random_flip"],
-                                add_channel=data.ndim == 3)
+    the CLIs' graph does (``data`` None: a step without a batch, whose
+    window carries nothing but its length); the chained step's eager
+    first step, its capture and the rest of that first window run here,
+    so every step of ``run()`` is a replay."""
+    if data is None:
+        window, consts = [torch.zeros((chain, 1), dtype=torch.int32, device="cuda")], ()
+
+        def prepare(consts, _row):
+            return ()
+    else:
+        rng = np.random.default_rng(0)
+        rows = np.stack([rng.choice(len(data), batch_size, replace=False) for _ in range(chain)])
+        window = [torch.from_numpy(rows.astype(np.int32)).cuda()]
+        if prep["random_flip"]:
+            window.append(torch.from_numpy(rng.random((chain, batch_size)) < 0.5).cuda())
+        consts = (torch.from_numpy(data).cuda(),)
+        prepare = normalize_prepare(prep["scale"], prep["shift"], flip=prep["random_flip"],
+                                    add_channel=data.ndim == 3)
     chained = make_chained_step(step, prepare, generators=(state.rng,))
     chained(state, consts, *window)
 
@@ -136,16 +195,16 @@ def profile_step(pipeline: str = "celeba", batch_size: int = 128, steps: int = 5
     from torch.profiler import ProfilerActivity, profile
 
     state, step, data, prep = build_step(pipeline, batch_size, dtype)
-    imgs = first_batch(data, prep, batch_size)
+    args = step_args(data, prep, batch_size)
     for _ in range(warmup):
-        step(state, imgs)
+        step(state, *args)
     torch.cuda.synchronize()
 
     if chain:
         run, per_run, runs = chained_replays(state, step, data, prep, batch_size, chain), chain, 3
         steps = chain
     else:
-        run, per_run, runs = (lambda: step(state, imgs)), 1, 20
+        run, per_run, runs = (lambda: step(state, *args)), 1, 20
     events = []
     for _ in range(runs):
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -209,7 +268,7 @@ def profile_step(pipeline: str = "celeba", batch_size: int = 128, steps: int = 5
 
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser()
-    parser.add_argument("--pipeline", choices=["celeba", "rp", "rp_color"], default="celeba",
+    parser.add_argument("--pipeline", choices=STEPS, default="celeba",
                         help="the train step to profile")
     parser.add_argument("--compute", choices=["bf16", "f32"], default="f32", help="model compute type")
     parser.add_argument("--tf32", action="store_true", help="allow TF32 in convs and matmuls")

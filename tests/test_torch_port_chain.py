@@ -341,14 +341,15 @@ def test_rp_cli_chain_4_matches_chain_1(tmp_path, monkeypatch):
 @pytest.mark.parametrize("pipeline", PIPELINES)
 def test_build_step_pipelines(pipeline):
     """The builder the card's chain check, profiler and step timing share:
-    each pipeline's uint8 dataset, batch arguments and step, one step on
-    the CPU at batch 2."""
+    each pipeline's dataset (uint8; MNIST's float32 in [-1, 1]), batch
+    arguments and step, one step on the CPU at batch 2."""
     state, step, data, prep = build_step(pipeline, batch_size=2, device="cpu")
-    assert data.dtype == np.uint8 and len(data) >= 16
+    assert data.dtype == (np.float32 if pipeline == "mnist" else np.uint8) and len(data) >= 16
     assert prep["random_flip"] == (pipeline == "celeba")
     batch = first_batch(data, prep, 2, device="cpu")
     channels = 3 if pipeline == "celeba" else 1
-    assert batch.shape == (2, 64, 64, channels) and batch.dtype == torch.float32
+    size = 32 if pipeline == "mnist" else 64
+    assert batch.shape == (2, size, size, channels) and batch.dtype == torch.float32
     assert -1.0 <= float(batch.min()) and float(batch.max()) <= 1.0
     state, metrics = step(state, batch)
     assert state.step == 1 and all(np.isfinite(float(v)) for v in metrics.values())

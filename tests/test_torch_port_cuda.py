@@ -12,6 +12,14 @@ inverse matrices (codes in [-3, 3], so some rows land wholly outside the
 image) and rp matrices, and one gray rp step on the card launches it
 exactly three times.
 
+The MNIST step's warp, (128, 32, 32, 1) with ``border`` padding (half
+the columns a block saw at 64 wide), and one MNIST step on the card
+launches it once; the MNIST step on the card against the CPU from the
+same weights and draws (f32 rtol 1e-3 at step 0 and 3e-2 after, bf16
+1e-2 and 5e-2, as ``chip_smoke.py``); the chained MNIST step against
+the per-step one; the BatchNorm-folded bf16 CelebA generator against the
+float32 eval forward on the card (2e-2 absolute on tanh outputs).
+
 The chained engine (one CUDA graph of the train step, replayed): 8
 steps of ``run_epochs`` for the pxy, gray rp and CelebA f32 steps at
 batch 16 in windows of up to 4 against two per-step runs from copies of
@@ -109,6 +117,78 @@ def test_warp_kernel_matches_plain_at_dsprites_shapes(cuda, channels, matrices, 
     assert (got.float() - ref.float()).abs().max().item() <= tol
 
 
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("pad", ["border", "zeros"])
+def test_warp_kernel_matches_plain_at_the_mnist_shape(cuda, pad, dtype, tol):
+    from eadgan_tpu_torch.utils.profiler import mnist_warp_inputs
+
+    img, matrix = mnist_warp_inputs(cuda)
+    img = img.to(dtype)
+    before = stn_cuda.launch_count
+    got = warp_affine(img, matrix, pad)
+    assert stn_cuda.launch_count == before + 1
+    ref = warp_affine_plain(img, matrix, pad)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (128, 32, 32, 1)
+    assert (got.float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("compute", ["f32", "bf16"])
+def test_mnist_step_matches_cpu_and_launches_the_warp_once(cuda, compute):
+    import numpy as np
+
+    from eadgan_tpu_torch.train.config import MnistConfig
+    from eadgan_tpu_torch.train.gan_mnist import init_mnist_gan_state, make_mnist_gan_step
+    from eadgan_tpu_torch.train.pretrain import approximator_model
+    from eadgan_tpu_torch.utils.profiler import build_step, first_batch
+
+    rtol = {"f32": (1e-3, 3e-2), "bf16": (1e-2, 5e-2)}[compute]
+    dtype = torch.bfloat16 if compute == "bf16" else None
+    config = MnistConfig(batch_size=4)
+    step = make_mnist_gan_step(config)
+    states = {dev: init_mnist_gan_state(config, approximator_model(1), device=dev, seed=0,
+                                        dtype=dtype) for dev in ("cpu", "cuda")}
+    _, _, data, prep = build_step("mnist", batch_size=4, device="cpu")
+    imgs = first_batch(data, prep, 4, device="cpu")
+    rng = np.random.default_rng(0)
+    for s in range(3):
+        fixed = {"z": rng.standard_normal((4, 62)).astype(np.float32),
+                 "sampled_labels": rng.integers(0, 10, 4),
+                 "code": rng.uniform(-1, 1, (4, 7)).astype(np.float32)}
+        before = stn_cuda.launch_count
+        _, on_card = step(states["cuda"], imgs.to(cuda), fixed=fixed)
+        torch.cuda.synchronize()
+        assert stn_cuda.launch_count == before + 1
+        _, on_cpu = step(states["cpu"], imgs, fixed=fixed)
+        for k, ref in on_cpu.items():
+            torch.testing.assert_close(on_card[k].cpu(), ref, rtol=rtol[0 if s == 0 else 1], atol=0)
+
+
+def test_folded_bf16_generator_matches_f32_eval_on_the_card(cuda):
+    from eadgan_tpu_torch.models import CelebaGenerator
+    from eadgan_tpu_torch.ops.quant import make_celeba_infer
+
+    gen = torch.Generator().manual_seed(0)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        model = CelebaGenerator()
+    sd = model.state_dict()
+    for k, v in sd.items():  # BatchNorm running statistics away from 0 and 1
+        if k.endswith("running_mean"):
+            v.copy_(0.1 * torch.randn(v.shape, generator=gen))
+        elif k.endswith("running_var"):
+            v.copy_(0.5 + torch.rand(v.shape, generator=gen))
+    model = model.to(cuda).eval()
+    z, code = torch.randn(128, 200, generator=gen), torch.rand(128, 8, generator=gen) * 2 - 1
+    label = torch.nn.functional.one_hot(torch.randint(0, 10, (128,), generator=gen), 10).float()
+    x = [t.to(cuda) for t in (z, label, code)]
+    with torch.no_grad():
+        ref = model(*x)
+    got = make_celeba_infer(sd, compute_dtype=torch.bfloat16, device=cuda)(*x)
+    assert got.dtype == torch.float32 and got.shape == (128, 3, 64, 64)
+    assert (got - ref).abs().max().item() <= 2e-2
+
+
 def test_gray_rp_step_launches_the_warp_three_times(cuda):
     from eadgan_tpu_torch.train.config import SpritesGanConfig
     from eadgan_tpu_torch.train.gan_dsprites import init_sprites_gan_state, make_sprites_gan_step
@@ -187,7 +267,7 @@ def test_fused_conv_kernel_rejects(cuda):
         fused_conv_cuda.fused_conv_lrelu_cuda(x, w.clone().requires_grad_(True), b)
 
 
-@pytest.mark.parametrize("pipeline", ["pxy", "rp", "celeba"])
+@pytest.mark.parametrize("pipeline", ["pxy", "rp", "celeba", "mnist"])
 def test_chained_step_matches_per_step(cuda, pipeline):
     from eadgan_tpu_torch.tools.chain_check import run_check
 
