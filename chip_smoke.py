@@ -17,7 +17,9 @@ a non-zero exit on the first that fails:
    (128, 64, 64, 3) colorized ones, under the aligner's inverse matrices
    on codes in [-3, 3], some rows wholly outside the image, and under rp
    matrices) and the MNIST step's shape ((128, 32, 32, 1) digits under
-   rpqmnxy matrices), in both paddings, f32 and bf16; the fused conv +
+   rpqmnxy matrices), in both paddings, f32 and bf16, and the scorer's
+   (the Representer's batch of 500 and odd ragged batches, C = 1 and 3,
+   under the aligner's inverse matrices in ``zeros``); the fused conv +
    LeakyReLU
    in bf16 over the test shapes, the CelebA discriminator's layer 2 at
    batch 128 and the edges of its tiles (Cout and Cin no multiple of the
@@ -36,9 +38,10 @@ a non-zero exit on the first that fails:
    the chained one bit-equal in every logged loss and event batch, the
    warp counted per replay); and the warp's launches counted per replay
    by its wrapper held against the warp kernels the CUPTI trace of a
-   window of 32 replayed gray rp steps shows; and the BatchNorm-folded
+   window of 32 replayed gray rp steps shows; the BatchNorm-folded
    bf16 CelebA generator against its float32 eval-mode forward at batch
-   128;
+   128; and the scorer's Representer on the CPU and on the card from the
+   same weights, gray and colored (continuous 1e-4, category ids equal);
 4. the main paths, each with its kernel's launch count set to 0 just
    before and read just after, and the warp's count held exactly (a
    replayed step counts the launches its capture recorded): the CelebA
@@ -52,7 +55,10 @@ a non-zero exit on the first that fails:
    + 2 for the grid), ``cli.rp --resume auto --compute bf16 --chain 1``
    to the planned total, ``cli.pxy_color`` and ``cli.rp_color`` (10 steps
    each), and a longer chained ``cli.rp`` on ``EADGAN_SYNTH_POS=8`` (30
-   batches an epoch, 90 steps) with ``EADGAN_CHAIN_TRACE``; ``cli.gen_imgs
+   batches an epoch, 90 steps) with ``EADGAN_CHAIN_TRACE``; ``cli.score
+   --metric all`` on the gray rp run's files and on the colored run's, on
+   ``EADGAN_SYNTH_POS=32`` (61,440 sprites) at its defaults, the warp
+   launched once a Representer batch, no scikit-learn; ``cli.gen_imgs
    --quant none`` and ``--quant bf16`` on the CelebA run's
    ``checkpoint_0.tar``; the MNIST pipeline at batch 128 on the
    synthetic digits, ``cli.approximate_rpqmnxy`` (a short run), then
@@ -71,8 +77,9 @@ a non-zero exit on the first that fails:
    folded bf16 one, beside their bound; the warp beside its bound, its
    plain version and the library call that computes the same function at
    (128, 64, 64, 3), at (128, 64, 64, 1) in both paddings and at the
-   MNIST step's (128, 32, 32, 1), and the fused conv's plain version,
-   bound and host cost per call.
+   MNIST step's (128, 32, 32, 1), and at the scorer's (500, 64, 64, 1)
+   and (500, 64, 64, 3) in ``zeros``; the Representer's batch of 500;
+   and the fused conv's plain version, bound and host cost per call.
 
 Its last lines are the ``{"kernels": [...]}`` record, the ``nvidia-smi``
 name/power-limit line, and ``{"ok": true, "device": {...}}``.
@@ -81,6 +88,7 @@ name/power-limit line, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import math
 import os
@@ -184,6 +192,7 @@ WARP_CASES = [
 # the dSprites trainers' warps: (channels, matrices); C = 1 is the shape
 # the TPU ran through its pair kernel (stn_pallas.py:116), C = 3 colored
 DSPRITES_WARP_CASES = [(c, m) for c in (1, 3) for m in ("align", "rp")]
+SCORE_BATCH = 500  # the scorer's Representer batch (eval/representation.py)
 
 # (batch, hw, cin, cout) of the fused conv: the CPU tests' shapes, the
 # CelebA discriminator's layer 2 at batch 128 (the probe's default, the
@@ -273,6 +282,24 @@ def phase_kernel_vs_plain(torch):
                 check(math.isfinite(err) and err <= tol, f"kernel vs plain {name} {pad} {dtype}: {err}")
                 if (channels, matrices, pad, dtype) == (1, "rp", "border", torch.float32):
                     errs["warp_affine_pair"] = err
+
+    # the scorer's warp (eval/representation.py): the Representer's batch of
+    # 500 and odd ragged last batches, binary sprites (C = 1, which the TPU
+    # took through its pair kernel) and colorized ones (C = 3) under the
+    # aligner's inverse matrices, "zeros" padding, float32
+    for channels in (1, 3):
+        for n in (SCORE_BATCH, 333, 1):
+            img, matrix = sprite_warp_inputs(channels, "align", "cuda", batch=n)
+            got = warp_affine_cuda(img, matrix, "zeros")
+            ref = warp_affine_plain(img, matrix, "zeros")
+            torch.cuda.synchronize()
+            check(got.dtype == torch.float32 and got.shape == img.shape, "scorer warp: dtype/shape")
+            err = (got - ref).abs().max().item()
+            emit({"case": f"score_c{channels}", "kernel": "warp_affine", "shape": list(img.shape),
+                  "padding": "zeros", "dtype": "float32", "max_abs_err": err, "tol": 2e-5})
+            check(math.isfinite(err) and err <= 2e-5, f"kernel vs plain score_c{channels} N={n}: {err}")
+            if n == SCORE_BATCH:
+                errs["warp_affine_pair_score" if channels == 1 else "warp_affine_score"] = err
 
     # the MNIST step's warp: (128, 32, 32, 1), half the columns a block saw
     # at 64 wide, under the step's rpqmnxy matrices ("border" is the step's)
@@ -514,6 +541,42 @@ def phase_infer_parity(torch):
     check(math.isfinite(err) and err <= INFER_TOL, f"folded bf16 generator vs f32 eval: {err}")
 
 
+REP_TOL = 1e-4  # continuous columns, CPU vs card: float32 convs summed in other orders
+
+
+def phase_representer_parity(torch):
+    """The scorer's Representer on the CPU and on the card from the same
+    weights, gray and colored, on 1,001 synthetic sprites (batches of 500,
+    500 and 1): the continuous columns within 1e-4, the category ids
+    equal, the card's warp launched once a batch."""
+    import numpy as np
+
+    from eadgan_tpu_torch.cli.score import fresh_encoders
+    from eadgan_tpu_torch.data.dsprites import synthetic_dsprites
+    from eadgan_tpu_torch.eval import Representer
+    from eadgan_tpu_torch.ops import stn_cuda
+
+    sprites = synthetic_dsprites(n_pos=6).imgs
+    imgs = sprites[np.random.default_rng(0).choice(len(sprites), 2 * SCORE_BATCH + 1, replace=False)]
+    for colored in (False, True):
+        reps = {}
+        for dev in ("cpu", "cuda"):
+            before = stn_cuda.launch_count
+            reps[dev] = Representer(*fresh_encoders(colored), colored=colored, seed=0,
+                                    device=dev)(imgs)
+        launched = stn_cuda.launch_count - before
+        cpu, card = reps["cpu"], reps["cuda"]
+        err = float(np.abs(cpu[:, 1:] - card[:, 1:]).max())
+        ids_equal = bool((cpu[:, 0] == card[:, 0]).all())
+        emit({"representer_parity": "colored" if colored else "gray", "images": len(imgs),
+              "batch": SCORE_BATCH, "continuous_max_abs_err": err, "tol": REP_TOL,
+              "category_ids_equal": ids_equal, "distinct_ids": int(len(np.unique(card[:, 0]))),
+              "warp_launches": launched})
+        check(card.shape == (len(imgs), 5) and np.isfinite(card).all(), "Representer on the card")
+        check(err <= REP_TOL and ids_equal, f"Representer CPU vs card: {err}, ids equal {ids_equal}")
+        check(launched == 3, f"Representer on the card launched the warp {launched} times, not 3")
+
+
 CHAIN_CHECKS = ("celeba", "pxy", "rp", "rp_color", "mnist")
 
 
@@ -744,6 +807,21 @@ def phase_mnist_trainers(torch):
     return launches
 
 
+SCORE_SYNTH_POS = 32  # the real archive's 32 positions a side: 61,440 synthetic sprites
+SCORE_KEYS = {"betaVAE_metric", "factorVAE_metric", "factorVAE_metric_revised", "MIG_metric",
+              "SAP_metric", "DCI_Lasso_disent_metric", "DCI_Lasso_complete_metric",
+              "FStat_modu_metric", "FStat_expl_metric"}
+
+
+def score_warp_launches(n_images: int, n_groups: int = 500, group_size: int = 100) -> int:
+    """The warp launches of ``cli.score --metric all``, one a Representer
+    batch: BetaVAE's and FactorVAE's groups, the 10% sample that
+    FactorVAE's eval std, SAP, DCI and the F-statistic each represent, and
+    MIG's 1,000 points."""
+    calls = [group_size] * (2 * n_groups) + [n_images // 10] * 4 + [1000]
+    return sum(-(-n // SCORE_BATCH) for n in calls)
+
+
 RP_KEYS = ("d_loss", "g_loss", "cat_loss", "cont_loss", "affine_loss", "relative_cat_loss")
 RP_STEPS, RP_GRID_WARPS = 20, 2  # the gray rp run: steps, and the step-0 grid's warps
 RP_LONG_STEPS = 90  # the chained rp run on 3,840 sprites: 3 epochs of 30 batches
@@ -759,7 +837,11 @@ def phase_dsprites_trainers(torch):
     step (``--chain 1``) to the planned total (5 epochs, 20 steps).  Then
     a longer chained gray rp run on ``EADGAN_SYNTH_POS=8`` (3,840
     sprites, 30 batches an epoch, 3 epochs), whose windows the epoch ends
-    clamp less.  Returns the launches by run."""
+    clamp less.  After the gray rp run and after the colored one,
+    ``cli.score --metric all`` scores that run's aligner and encoder files
+    on ``EADGAN_SYNTH_POS=32`` (61,440 sprites, the real archive's size)
+    at its defaults (500 groups, batch 500), its warp launches held to one
+    a Representer batch.  Returns the launches by run."""
     from eadgan_tpu_torch.ops import stn_cuda
     from eadgan_tpu_torch.train.checkpoint import saved_steps
 
@@ -791,6 +873,37 @@ def phase_dsprites_trainers(torch):
                         "chain": 32 if chained else 1, "warp_launches": stn_cuda.launch_count,
                         "expected_launches": want, "wall_s": wall, **loop, "last": records[-1]})
 
+        def score(label, colored, pxy_file):
+            """``cli.score --metric all`` on the run's aligner and its
+            ``encoder_0.pt`` (random weights after a step: scores are
+            printed, not gated), on the 61,440-sprite stand-in."""
+            out_json = os.path.join(tmp, f"{label}.json")
+            argv = ["--metric", "all", "--encoder_pxy", pxy_file, "--encoder",
+                    os.path.join(tmp, "encoder_0.pt"), "--data_dir", tmp, "--json_out", out_json]
+            buf = io.StringIO()
+            stn_cuda.reset_launch_count()  # counts from here read this run only
+            t0 = time.perf_counter()
+            with environ(EADGAN_SYNTH_POS=str(SCORE_SYNTH_POS)), contextlib.redirect_stdout(buf):
+                run_module(torch, "eadgan_tpu_torch.cli.score", argv + (["--colored"] if colored else []))
+            wall = time.perf_counter() - t0
+            text = buf.getvalue()
+            print(text, end="", flush=True)
+            with open(out_json) as f:
+                scores = json.load(f)
+            check(set(scores) == SCORE_KEYS, f"{label}: score keys {sorted(scores)}")
+            check("sklearn" not in sys.modules, f"{label}: the scorer imported scikit-learn")
+            n_images = 3 * 4 * 5 * SCORE_SYNTH_POS ** 2
+            want = score_warp_launches(n_images)
+            check(stn_cuda.launch_count == want,
+                  f"{label}: warp launched {stn_cuda.launch_count} times, expected {want}")
+            launches[label] = stn_cuda.launch_count
+            out.append({"score_cli": "eadgan_tpu_torch.cli.score", "run": label, "colored": colored,
+                        "dataset_images": n_images, "n_groups": 500, "batch": SCORE_BATCH,
+                        "warp_launches": stn_cuda.launch_count, "expected_launches": want,
+                        "wall_s": wall,
+                        "timing_s": json.loads(text.rsplit("score timing (s): ", 1)[1]),
+                        "scores": scores})
+
         def grids(label, names):
             for name in names:
                 check(os.path.isfile(os.path.join(tmp, label, name, "0.png")), f"{label} grid {name}")
@@ -810,6 +923,7 @@ def phase_dsprites_trainers(torch):
         for name in ("encoder_0.pt", "generator_0.pt"):
             check(os.path.isfile(os.path.join(tmp, name)), name)
         check(saved_steps(tmp, "rp_train_state") == [0], "rp train state")
+        score("score_gray", False, pxy_file)
         # step 1 is inside epoch 0: its 3 remaining batches, then 4 epochs
         run("rp_resumed_bf16", "eadgan_tpu_torch.cli.rp", RP_STEPS - 1, 3, 0,
             rp_args + ["--resume", "auto", "--compute", "bf16", "--chain", "1",
@@ -822,6 +936,7 @@ def phase_dsprites_trainers(torch):
         run("rp_color", "eadgan_tpu_torch.cli.rp_color", 10, 3, 2,
             ["--encoder_pxy", color_file, "--max_steps", "10", "--sample_interval", "10"], RP_KEYS)
         grids("rp_color", rp_grids)
+        score("score_color", True, color_file)
 
         with environ(EADGAN_SYNTH_POS="8"):
             long_dir = os.path.join(tmp, "long")
@@ -1021,6 +1136,25 @@ def time_inference(torch, cycles):
     return record
 
 
+def time_representer(torch, cycles):
+    """The scorer's Representer on the card by CUDA events: one batch of
+    500 sprites under fresh weights (aligner, warp, encoder), gray and
+    colored."""
+    from eadgan_tpu_torch.cli.score import fresh_encoders
+    from eadgan_tpu_torch.eval import Representer
+    from eadgan_tpu_torch.utils.profiler import sprite_warp_inputs
+    from eadgan_tpu_torch.utils.timing import device_ms
+
+    record = {"representer": "eadgan_tpu_torch.eval.Representer", "batch": SCORE_BATCH}
+    for colored in (False, True):
+        rep = Representer(*fresh_encoders(colored), colored=colored, device="cuda")
+        img, _ = sprite_warp_inputs(3 if colored else 1, "align", "cuda", batch=SCORE_BATCH)
+        ms = device_ms(lambda: rep.represent(img), 50, cycles)
+        record["colored" if colored else "gray"] = {"ms": ms, "img_per_s": SCORE_BATCH / ms * 1e3}
+    emit(record)
+    return record
+
+
 def phase_timing(torch, errs, probe):
     """Kernel records for the ``kernels`` line; the fused conv's kernel
     and library times are those its probe measured on the main path."""
@@ -1046,9 +1180,14 @@ def phase_timing(torch, errs, probe):
     warp_c1_zeros = time_warp(torch, 128, 64, 64, 1, cycles, gen, padding="zeros")
     # the MNIST step's shape, which the TPU also took through its pair kernel
     warp_mnist = time_warp(torch, 128, 32, 32, 1, cycles, gen)
+    # the scorer's: the Representer's batch of 500 in "zeros", C = 1 and 3
+    warp_score_c1 = time_warp(torch, SCORE_BATCH, 64, 64, 1, cycles, gen, padding="zeros")
+    warp_score_c3 = time_warp(torch, SCORE_BATCH, 64, 64, 3, cycles, gen, padding="zeros")
     emit({"warp_timing": warp, "warp_timing_c1": warp_c1, "warp_timing_c1_zeros": warp_c1_zeros,
-          "warp_timing_mnist": warp_mnist})
+          "warp_timing_mnist": warp_mnist, "warp_timing_score_c1": warp_score_c1,
+          "warp_timing_score_c3": warp_score_c3})
     time_inference(torch, cycles)
+    time_representer(torch, cycles)
     # the rp and MNIST steps' warps against their time (gray: C = 1,
     # colored: C = 3, MNIST: 32x32)
     for record in steps:
@@ -1073,6 +1212,8 @@ def phase_timing(torch, errs, probe):
         "launches": None,
         "max_abs_err": errs["warp_affine"],
         **{k: warp[k] for k in keys},
+        **{f"score_{k}": warp_score_c3[k] for k in keys},
+        "score_max_abs_err": errs["warp_affine_score"],
     }
     pair_kernel = {
         "name": "warp_affine_pair",
@@ -1085,6 +1226,8 @@ def phase_timing(torch, errs, probe):
         **{f"zeros_{k}": warp_c1_zeros[k] for k in keys[1:]},
         **{f"mnist_{k}": warp_mnist[k] for k in keys},
         "mnist_max_abs_err": errs["warp_affine_pair_mnist"],
+        **{f"score_{k}": warp_score_c1[k] for k in keys},
+        "score_max_abs_err": errs["warp_affine_pair_score"],
     }
 
     # the fused conv at its main path's shape: its plain version, bound and
@@ -1130,14 +1273,17 @@ def main() -> None:
     print("== phase 2: kernels vs plain versions on the card", flush=True)
     errs = phase_kernel_vs_plain(torch)
     print("== phase 3: train steps, CPU vs CUDA (CelebA; dSprites pxy and rp; MNIST and its "
-          "approximator), chained vs per step, folded generator vs eval", flush=True)
+          "approximator), chained vs per step, folded generator vs eval, the scorer's "
+          "Representer CPU vs CUDA", flush=True)
     phase_step_parity(torch)
     phase_step_parity_dsprites(torch)
     phase_step_parity_mnist(torch)
     phase_chain_parity(torch)
     phase_infer_parity(torch)
-    print("== phase 4: main paths (the CelebA trainer and gen_imgs, the dSprites trainers, the "
-          "MNIST pipeline and generate_image, then the fused conv's probe)", flush=True)
+    phase_representer_parity(torch)
+    print("== phase 4: main paths (the CelebA trainer and gen_imgs, the dSprites trainers and "
+          "the scorer, the MNIST pipeline and generate_image, then the fused conv's probe)",
+          flush=True)
     warp_by_path = {"celeba": phase_trainer(torch)["warp_affine"], **phase_dsprites_trainers(torch),
                     "mnist": phase_mnist_trainers(torch)}
     probe_launches, probe = phase_probe(torch)
@@ -1145,8 +1291,8 @@ def main() -> None:
     kernels = phase_timing(torch, errs, probe)
     # the warp's paths by the Pallas body the TPU took there: _kernel for
     # C * W > 128 (CelebA, colored dSprites), _kernel_pair otherwise
-    paths = {"warp_affine": ("celeba", "pxy_color", "rp_color"),
-             "warp_affine_pair": ("pxy", "rp", "rp_resumed_bf16", "rp_long", "mnist")}
+    paths = {"warp_affine": ("celeba", "pxy_color", "rp_color", "score_color"),
+             "warp_affine_pair": ("pxy", "rp", "rp_resumed_bf16", "rp_long", "mnist", "score_gray")}
     check(sorted(p for v in paths.values() for p in v) == sorted(warp_by_path),
           f"warp paths {sorted(warp_by_path)}")
     for k in kernels:

@@ -124,23 +124,24 @@ def step_args(data, prep, batch_size: int, device="cuda") -> tuple:
     return () if data is None else (first_batch(data, prep, batch_size, device),)
 
 
-def sprite_warp_inputs(channels: int, matrices: str, device, seed: int = 0):
-    """The dSprites trainers' warp inputs: (128, 64, 64, C) synthetic
+def sprite_warp_inputs(channels: int, matrices: str, device, seed: int = 0, batch: int = 128):
+    """The dSprites trainers' warp inputs: (batch, 64, 64, C) synthetic
     sprites in {0, 1} (C = 3: colorized by uniform [0.5, 1) colours) and
-    (128, 3, 3) matrices, the aligner's inverse translation on pxy codes
+    (batch, 3, 3) matrices, the aligner's inverse translation on pxy codes
     in [-3, 3], which moves some rows wholly outside the image
-    (``"align"``), or rp codes in [-1, 1] (``"rp"``)."""
+    (``"align"``, also the scorer's), or rp codes in [-1, 1] (``"rp"``).
+    ``batch`` is at most 540, the 3-a-side stand-in's size."""
     from eadgan_tpu_torch.transforms import RP, code_to_matrix, inverse_affine, pxy_align_matrix
 
     gen = torch.Generator().manual_seed(seed)
     sprites = torch.from_numpy(synthetic_dsprites(n_pos=3).imgs)
-    img = sprites[torch.randperm(len(sprites), generator=gen)[:128], :, :, None].float()
+    img = sprites[torch.randperm(len(sprites), generator=gen)[:batch], :, :, None].float()
     if channels == 3:
-        img = img.repeat(1, 1, 1, 3) * (torch.rand(128, 1, 1, 3, generator=gen) * 0.5 + 0.5)
+        img = img.repeat(1, 1, 1, 3) * (torch.rand(batch, 1, 1, 3, generator=gen) * 0.5 + 0.5)
     if matrices == "align":
-        matrix = inverse_affine(pxy_align_matrix(torch.rand(128, 3, generator=gen) * 6 - 3))
+        matrix = inverse_affine(pxy_align_matrix(torch.rand(batch, 3, generator=gen) * 6 - 3))
     else:
-        matrix = code_to_matrix(RP, torch.rand(128, 4, generator=gen) * 2 - 1)
+        matrix = code_to_matrix(RP, torch.rand(batch, 4, generator=gen) * 2 - 1)
     return img.contiguous().to(device), matrix.to(device)
 
 

@@ -12,6 +12,12 @@ inverse matrices (codes in [-3, 3], so some rows land wholly outside the
 image) and rp matrices, and one gray rp step on the card launches it
 exactly three times.
 
+The scorer's warp, the Representer's batch of 500 and odd ragged
+batches of binary (C = 1) and colorized (C = 3) sprites under the
+aligner's inverse matrices in ``zeros``; the Representer on the card
+against the CPU from the same weights (continuous columns 1e-4,
+category ids equal, one warp a batch).
+
 The MNIST step's warp, (128, 32, 32, 1) with ``border`` padding (half
 the columns a block saw at 64 wide), and one MNIST step on the card
 launches it once; the MNIST step on the card against the CPU from the
@@ -131,6 +137,37 @@ def test_warp_kernel_matches_plain_at_the_mnist_shape(cuda, pad, dtype, tol):
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == (128, 32, 32, 1)
     assert (got.float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("batch", [500, 333, 1])
+@pytest.mark.parametrize("channels", [1, 3])
+def test_warp_kernel_matches_plain_at_the_scorer_shapes(cuda, channels, batch):
+    img, matrix = sprite_warp_inputs(channels, "align", cuda, batch=batch)
+    before = stn_cuda.launch_count
+    got = warp_affine(img, matrix, "zeros")
+    assert stn_cuda.launch_count == before + 1
+    ref = warp_affine_plain(img, matrix, "zeros")
+    torch.cuda.synchronize()
+    assert (got - ref).abs().max().item() <= 2e-5
+
+
+@pytest.mark.parametrize("colored", [False, True], ids=["gray", "colored"])
+def test_representer_on_the_card_matches_the_cpu(cuda, colored):
+    import numpy as np
+
+    from eadgan_tpu_torch.cli.score import fresh_encoders
+    from eadgan_tpu_torch.data.dsprites import synthetic_dsprites
+    from eadgan_tpu_torch.eval import Representer
+
+    sprites = synthetic_dsprites(n_pos=6).imgs
+    imgs = sprites[np.random.default_rng(0).choice(len(sprites), 1001, replace=False)]
+    reps = {}
+    for dev in ("cpu", "cuda"):
+        before = stn_cuda.launch_count
+        reps[dev] = Representer(*fresh_encoders(colored), colored=colored, device=dev)(imgs)
+    assert stn_cuda.launch_count == before + 3  # batches of 500, 500 and 1
+    np.testing.assert_array_equal(reps["cpu"][:, 0], reps["cuda"][:, 0])
+    np.testing.assert_allclose(reps["cpu"][:, 1:], reps["cuda"][:, 1:], rtol=0, atol=1e-4)
 
 
 @pytest.mark.parametrize("compute", ["f32", "bf16"])
