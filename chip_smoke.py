@@ -25,7 +25,10 @@ a non-zero exit on the first that fails:
    batch 128 and the edges of its tiles (Cout and Cin no multiple of the
    tile, Ho no multiple of 8 or 16, one image, several waves), with the
    probe's small bias and with one as large as the conv output (one JSON
-   line per case);
+   line per case); the int8 generator's two kernels, ``int8_convt`` and
+   ``quantize_int8``, at its three quantized layers' shapes at the CLI's
+   batch of 100, bit-equal to their plain versions (the quantization
+   from layer 1's NCHW input and the others' NHWC, with exact .5 ties);
 3. train steps on the CPU and on the card from the same weights and
    draws, three steps at batch 4: CelebA at the low-lr config in f32 and
    bf16; the pxy step gray and colored in f32; the rp step gray and
@@ -40,7 +43,8 @@ a non-zero exit on the first that fails:
    by its wrapper held against the warp kernels the CUPTI trace of a
    window of 32 replayed gray rp steps shows; the BatchNorm-folded
    bf16 CelebA generator against its float32 eval-mode forward at batch
-   128; and the scorer's Representer on the CPU and on the card from the
+   128 (2e-2), and the int8 one (``--quant int8``) against it too, PSNR
+   above 25 dB and within 0.5; and the scorer's Representer on the CPU and on the card from the
    same weights, gray and colored (continuous 1e-4, category ids equal);
 4. the main paths, each with its kernel's launch count set to 0 just
    before and read just after, and the warp's count held exactly (a
@@ -59,8 +63,12 @@ a non-zero exit on the first that fails:
    --metric all`` on the gray rp run's files and on the colored run's, on
    ``EADGAN_SYNTH_POS=32`` (61,440 sprites) at its defaults, the warp
    launched once a Representer batch, no scikit-learn; ``cli.gen_imgs
-   --quant none`` and ``--quant bf16`` on the CelebA run's
-   ``checkpoint_0.tar``; the MNIST pipeline at batch 128 on the
+   --quant none``, ``--quant bf16`` and ``--quant int8`` on the CelebA
+   run's ``checkpoint_0.tar``, the int8 kernels' launches held exactly
+   (8 forwards of 3 int8 layers: 24 ``int8_convt`` and 48
+   ``quantize_int8``, two launches a quantization); a CelebA save window
+   (grids, ``checkpoint_%d.tar``, the train state) timed inline
+   (``EADGAN_SYNC_EVENTS=1``) against the chained engine's event worker; the MNIST pipeline at batch 128 on the
    synthetic digits, ``cli.approximate_rpqmnxy`` (a short run), then
    ``cli.mnist --chain 32`` on its file (32 steps, 1 warp a step + 1 for
    the step-0 grid), then ``cli.generate_image`` on its generator file;
@@ -73,8 +81,12 @@ a non-zero exit on the first that fails:
    share), each per step and replayed (windows of 32 replays, each
    gathering its batch on the card from the resident dataset as the
    CLIs' graph does, after the eager step and the capture); CelebA
-   generator inference at batch 128, the float32 eval forward and the
-   folded bf16 one, beside their bound; the warp beside its bound, its
+   generator inference at batch 128, the float32 eval forward, the
+   folded bf16 one and the int8 one with its PSNR, beside their bounds
+   (``tools/quant_bench.py``); the int8 kernels at the three layers at
+   batch 128 beside their bounds, plain versions and yardsticks
+   (``torch._int_mm`` on the phases' im2col matrices and cuDNN's bf16
+   transposed conv; ``torch.amax`` and the quantize expression); the warp beside its bound, its
    plain version and the library call that computes the same function at
    (128, 64, 64, 3), at (128, 64, 64, 1) in both paddings and at the
    MNIST step's (128, 32, 32, 1), and at the scorer's (500, 64, 64, 1)
@@ -105,6 +117,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 BF16_TENSOR_FLOPS_PER_S = 989e12  # dense
+INT8_TENSOR_OPS_PER_S = 1979e12  # dense
 
 
 def fail(msg: str) -> None:
@@ -235,6 +248,45 @@ def conv_inputs(torch, shape, bias=0.01, seed=0):
     return [torch.from_numpy(a).to(torch.bfloat16).cuda() for a in arrays]
 
 
+# the CelebA generator's int8 layers 1-3: (H, Cin, Cout) of their inputs;
+# gen_imgs runs them at batch 100, quant_bench and phase 5 at 128
+INT8_LAYERS = [(4, 1024, 512), (8, 512, 256), (16, 256, 128)]
+
+
+def phase_int8_vs_plain(torch, errs):
+    """The int8 generator's two kernels against their plain versions (run
+    on the CPU: exact integer sums in float64) at the three layers'
+    shapes at the CLI's batch of 100 (the card tests add 128 and 3):
+    bit-equal, or the script fails."""
+    from eadgan_tpu_torch.ops.quant import (int8_convt_relu, int8_convt_relu_plain,
+                                            quantize_activation, quantize_activation_plain)
+    from eadgan_tpu_torch.tools.quant_bench import int8_layer_inputs
+
+    errs["int8_convt"] = errs["quantize_int8"] = 0.0
+    batch = 100
+    for h, cin, cout in INT8_LAYERS:
+        xq, a_scale, layer, act = int8_layer_inputs(batch, h, cin, cout)
+        ref = int8_convt_relu_plain(xq, a_scale, layer.wq, layer.w_scale, layer.bias)
+        card = type(layer)(*(t.cuda() for t in (layer.wq, layer.wp, layer.w_scale, layer.bias)))
+        got = int8_convt_relu(xq.cuda(), a_scale.cuda(), card).cpu()
+        check(got.shape == ref.shape and got.dtype == torch.float32, "int8_convt: dtype/shape")
+        err = (got - ref).abs().max().item()
+        emit({"case": f"layer_h{h}", "kernel": "int8_convt", "shape": list(xq.shape),
+              "cout": cout, "max_abs_err": err, "bit_equal": torch.equal(got, ref), "tol": 0.0})
+        check(torch.equal(got, ref), f"int8_convt vs plain at {tuple(xq.shape)}->{cout}: {err}")
+        nhwc = h != 4
+        ref_q, ref_scale = quantize_activation_plain(act, nhwc)
+        q, scale = quantize_activation(act.cuda(), nhwc)
+        q, scale = q.cpu(), scale.cpu()
+        equal = torch.equal(q, ref_q) and torch.equal(scale, ref_scale)
+        qerr = (q.int() - ref_q.int()).abs().max().item()
+        emit({"case": f"layer_h{h}_input", "kernel": "quantize_int8", "shape": list(act.shape),
+              "layout": "nhwc" if nhwc else "nchw", "max_abs_err": qerr,
+              "scale": scale.item(), "bit_equal": equal, "tol": 0.0})
+        check(equal, f"quantize_int8 vs plain at {tuple(act.shape)}: {qerr}")
+    torch.cuda.synchronize()
+
+
 def phase_kernel_vs_plain(torch):
     """Returns each kernel's max abs error at the main path's shape."""
     from eadgan_tpu_torch import transforms
@@ -358,6 +410,7 @@ def phase_kernel_vs_plain(torch):
         check("forward-only" in str(e), f"fused conv refused a grad input for another reason: {e}")
     else:
         fail("fused conv accepted an input that requires grad")
+    phase_int8_vs_plain(torch, errs)
     return errs
 
 
@@ -496,49 +549,41 @@ def phase_step_parity_mnist(torch):
         _check_step_losses("approximator", "f32", s, losses)
 
 
-def inference_generator(torch, batch=128):
-    """A CelebA generator state_dict (torch's default init from seed 0,
-    BatchNorm running statistics drawn away from 0 and 1, as a trained
-    model's are) and (z, one-hot labels, code) inputs on the card."""
-    from eadgan_tpu_torch.models import CelebaGenerator
-
-    gen = torch.Generator().manual_seed(0)
-    with torch.random.fork_rng(devices=[]):
-        torch.manual_seed(0)
-        sd = CelebaGenerator().state_dict()
-    for k, v in sd.items():
-        if k.endswith("running_mean"):
-            v.copy_(0.1 * torch.randn(v.shape, generator=gen))
-        elif k.endswith("running_var"):
-            v.copy_(0.5 + torch.rand(v.shape, generator=gen))
-    z = torch.randn(batch, 200, generator=gen)
-    label = torch.nn.functional.one_hot(torch.randint(0, 10, (batch,), generator=gen), 10).float()
-    code = torch.rand(batch, 8, generator=gen) * 2 - 1
-    return sd, [t.cuda() for t in (z, label, code)]
-
-
 INFER_TOL = 2e-2  # bf16 fold against the f32 eval forward, absolute on tanh outputs
+INT8_PSNR_DB, INT8_MAX_ABS = 25.0, 0.5  # the int8 forward's bar (tests/test_quant.py)
 
 
 def phase_infer_parity(torch):
     """The BatchNorm-folded bf16 CelebA generator (``cli.gen_imgs --quant
-    bf16``) against its float32 eval-mode forward (``--quant none``) on
-    the card, batch 128."""
+    bf16``) and the int8 one (``--quant int8``, through both int8
+    kernels) against the float32 eval-mode forward (``--quant none``) on
+    the card, batch 128: bf16 within 2e-2, int8 above 25 dB PSNR and
+    within 0.5."""
     from eadgan_tpu_torch.models import CelebaGenerator
     from eadgan_tpu_torch.ops.quant import make_celeba_infer
+    from eadgan_tpu_torch.tools.quant_bench import generator_inputs, psnr_db
 
-    sd, x = inference_generator(torch)
+    sd, x = generator_inputs(128, "cuda")
     model = CelebaGenerator()
     model.load_state_dict(sd)
     with torch.no_grad():
         ref = model.cuda().eval()(*x)
-    got = make_celeba_infer(sd, compute_dtype=torch.bfloat16, device="cuda")(*x)
+    got = make_celeba_infer(sd, quant="none", compute_dtype=torch.bfloat16, device="cuda")(*x)
     torch.cuda.synchronize()
     err = (got - ref).abs().max().item()
     emit({"infer_parity": "celeba_generator", "batch": 128, "folded": "bf16", "ref": "f32 eval",
           "shape": list(got.shape), "max_abs_err": err, "tol": INFER_TOL})
     check(got.dtype == torch.float32 and got.shape == ref.shape, "folded generator: dtype/shape")
     check(math.isfinite(err) and err <= INFER_TOL, f"folded bf16 generator vs f32 eval: {err}")
+    got = make_celeba_infer(sd, quant="int8", device="cuda")(*x)
+    torch.cuda.synchronize()
+    err, psnr = (got - ref).abs().max().item(), psnr_db(got, ref)
+    emit({"infer_parity": "celeba_generator", "batch": 128, "folded": "int8 (bf16 ends)",
+          "ref": "f32 eval", "shape": list(got.shape), "psnr_db": psnr, "max_abs_err": err,
+          "min_psnr_db": INT8_PSNR_DB, "tol": INT8_MAX_ABS})
+    check(got.dtype == torch.float32 and got.shape == ref.shape, "int8 generator: dtype/shape")
+    check(bool(torch.isfinite(got).all()), "int8 generator: non-finite output")
+    check(psnr > INT8_PSNR_DB and err < INT8_MAX_ABS, f"int8 generator vs f32 eval: {psnr} dB, {err}")
 
 
 REP_TOL = 1e-4  # continuous columns, CPU vs card: float32 convs summed in other orders
@@ -666,7 +711,7 @@ def phase_trainer(torch):
     at step 0 only, the warp launched exactly once a step plus once for
     the grid; then ``--resume auto --compute bf16 --chain 1`` continuing
     per step from step 1, inside epoch 0, to the planned total."""
-    from eadgan_tpu_torch.ops import stn_cuda
+    from eadgan_tpu_torch.ops import quant_cuda, stn_cuda
     from eadgan_tpu_torch.train.checkpoint import saved_steps
 
     module = "eadgan_tpu_torch.cli.celeba"
@@ -713,16 +758,22 @@ def phase_trainer(torch):
         check([r["step"] for r in resumed] == list(range(1, total)),
               f"resumed steps {[r['step'] for r in resumed]}")
 
-        # inference from the run's checkpoint: the f32 eval forward and the
-        # BatchNorm-folded bf16 one, 8 sweep grids each
+        # inference from the run's checkpoint: the f32 eval forward, the
+        # BatchNorm-folded bf16 one and the int8 one, 8 sweep grids each
         infer = {}
-        for quant in ("none", "bf16"):
+        for quant in ("none", "bf16", "int8"):
             out = os.path.join(tmp, f"gen_imgs_{quant}")
+            quant_cuda.reset_launch_count()  # counts from here read this path only
             t0 = time.perf_counter()
             run_module(torch, "eadgan_tpu_torch.cli.gen_imgs",
                        ["--checkpoint", os.path.join(tmp, "checkpoint_0.tar"), "--out_dir", out,
                         "--quant", quant])
             infer[quant] = time.perf_counter() - t0
+            int8_launches = dict(quant_cuda.launch_count)
+            # 8 forwards of batch 100: 3 int8 layers each, 1 + 2 launches a layer
+            want = {"int8_convt": 24, "quantize_int8": 48} if quant == "int8" else {
+                "int8_convt": 0, "quantize_int8": 0}
+            check(int8_launches == want, f"gen_imgs --quant {quant}: int8 launches {int8_launches}")
             for k in range(1, 9):
                 check(os.path.isfile(os.path.join(out, f"varying_c{k}", "0.png")),
                       f"gen_imgs --quant {quant} grid varying_c{k}")
@@ -734,8 +785,88 @@ def phase_trainer(torch):
           "steps": [r["step"] for r in resumed], "wall_s": resume_wall,
           "loop_step_ms_host_clock": loop_ms(resumed), "last": resumed[-1]})
     emit({"inference_cli": "eadgan_tpu_torch.cli.gen_imgs", "checkpoint": "checkpoint_0.tar",
-          "grids": 8, "wall_s_by_quant": infer})
-    return {"warp_affine": launches}
+          "grids": 8, "wall_s_by_quant": infer, "int8_launches": int8_launches})
+    return {"warp_affine": launches, **int8_launches}
+
+
+SAVE_STEPS, SAVE_EVERY = 24, 8  # the save-window runs: steps, and the event period
+
+
+def phase_save_window(torch):
+    """The CelebA trainer's save window, inline (``EADGAN_SYNC_EVENTS=1``)
+    against the event worker, f32 at batch 128: ``run_epochs`` chained
+    (``--chain 32``, the profiler's 1,024 synthetic faces, 8 batches an
+    epoch) for 24 steps with saves at steps 8 and 16, each doing what
+    ``cli.celeba``'s callback does at a multiple of 15 sample intervals:
+    the sample grids (one warp), ``checkpoint_%d.tar`` and the ~520 MB
+    train state (step 0's event, before the capture, where the engine
+    waits for the worker anyway, saves nothing).  From each run's
+    ``EADGAN_CHAIN_TRACE``: the host seconds of the two save windows by
+    part, ``cb`` the callback (inline) or the snapshot and submit
+    (worker); and the run's wall, the worker's last save included.  The
+    files of both runs exist when ``run_epochs`` returns."""
+    from eadgan_tpu_torch.cli.celeba import warp_batch
+    from eadgan_tpu_torch.sample.figures import celeba_training_grids
+    from eadgan_tpu_torch.train.checkpoint import (cpu_state_dict, save_checkpoint,
+                                                   save_train_state, saved_steps)
+    from eadgan_tpu_torch.train.engine import generator_apply, run_epochs
+    from eadgan_tpu_torch.utils.profiler import build_step
+
+    record = {"save_window": "celeba", "batch_size": 128, "compute": "f32", "chain": 32,
+              "steps": SAVE_STEPS, "saves": list(range(SAVE_EVERY, SAVE_STEPS, SAVE_EVERY))}
+    for mode in ("inline", "worker"):
+        state, step, data, prep = build_step("celeba", 128)
+        with tempfile.TemporaryDirectory(prefix="eadgan_save_") as tmp:
+            trace = os.path.join(tmp, "trace.jsonl")
+
+            def on_batch(i, st, metrics, batch, tmp=tmp):
+                if i % SAVE_EVERY or i == 0:
+                    return
+                real = batch[0][:100]
+                scaled = warp_batch(real, i, 8)
+                celeba_training_grids(generator_apply(lambda: st.g), real.cpu().numpy(),
+                                      scaled.cpu().numpy(), os.path.join(tmp, "images"), i,
+                                      latent_dim=200, n_classes=10, code_dim=8)
+                save_checkpoint(os.path.join(tmp, f"checkpoint_{i}.tar"), {
+                    "discriminator_state_dict": cpu_state_dict(st.d),
+                    "generator_state_dict": cpu_state_dict(st.g), "epoch": i // 8,
+                    "batches_done": i})
+                save_train_state(tmp, "celeba_train_state", i, st, keep=0)
+
+            with environ(EADGAN_SYNC_EVENTS="1" if mode == "inline" else "0",
+                         EADGAN_CHAIN_TRACE=trace):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run_epochs(n_epochs=SAVE_STEPS // 8, data=data, batch_size=128, state=state,
+                           step_fn=step, on_batch=on_batch, device="cuda", max_steps=SAVE_STEPS,
+                           chain=32, chain_periods=(SAVE_EVERY,), **prep)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            check(saved_steps(tmp, "celeba_train_state") == [16, 8],
+                  f"{mode}: train states {saved_steps(tmp, 'celeba_train_state')}")
+            for i in record["saves"]:
+                check(os.path.isfile(os.path.join(tmp, f"checkpoint_{i}.tar")), f"{mode}: ckpt {i}")
+                check(os.path.isfile(os.path.join(tmp, "images", "varying_c8", f"{i}.png")),
+                      f"{mode}: grid {i}")
+            saved = torch.load(os.path.join(tmp, "celeba_train_state_16.ckpt"), weights_only=True)
+            check(saved["step"] == 17, f"{mode}: saved step {saved['step']}")
+            windows = [json.loads(line) for line in open(trace)]
+        saves = [w for w in windows if (w["s"] + w["k"] - 1) % SAVE_EVERY == 0 and w["s"] > 0]
+        check(len(saves) == 2, f"{mode}: save windows {saves}")
+        record[mode] = {"wall_s": wall, "save_windows": saves,
+                        "save_cb_s": [w["cb"] for w in saves],
+                        "window_host_s": sum(w[p] for w in windows[1:]
+                                             for p in ("iter", "disp", "drain", "cb"))}
+        # the models and the three Adams' moments, as a save copies them
+        record["train_state_mb"] = sum(
+            v.numel() * v.element_size()
+            for v in [*state.g.state_dict().values(), *state.d.state_dict().values(),
+                      *(v for o in (state.opt_g, state.opt_d, state.opt_info)
+                        for st in o.state.values() for v in st.values())]
+            if torch.is_tensor(v)) / 1e6
+        del state
+    emit(record)
+    return record
 
 
 MNIST_STEPS, MNIST_GRID_WARPS = 32, 1  # two epochs of the 16-batch stand-in; the grid's warp
@@ -1086,54 +1217,103 @@ def time_warp(torch, n, h, w, c, cycles, gen, padding="border"):
     }
 
 
-def convt_macs(shapes, hw_out):
-    """Multiply-adds of a stack of transposed convs, per image: each output
-    pixel of a k4 s2 p1 layer takes 2 x 2 taps of every input channel, the
-    k4 s1 p0 first layer (1x1 -> 4x4) one tap."""
-    total = 0
-    for (cin, cout, taps), hw in zip(shapes, hw_out):
-        total += hw * hw * cout * cin * taps
-    return total
-
-
-# CelebA generator's ConvTransposes: (cin, cout, taps per output pixel), output size
-CELEBA_G_CONVT = ([(218, 1024, 1), (1024, 512, 4), (512, 256, 4), (256, 128, 4), (128, 3, 4)],
-                  [4, 8, 16, 32, 64])
-
-
 def time_inference(torch, cycles):
-    """CelebA generator inference at batch 128 by CUDA events: the float32
-    eval-mode forward (``cli.gen_imgs --quant none``) and the BatchNorm-
-    folded bf16 forward (``--quant bf16``), each beside its bound."""
-    from eadgan_tpu_torch.models import CelebaGenerator
-    from eadgan_tpu_torch.ops.quant import make_celeba_infer
-    from eadgan_tpu_torch.utils.timing import device_ms
+    """CelebA generator inference at batch 128 by CUDA events
+    (``tools/quant_bench.py``): the float32 eval-mode forward (``cli.
+    gen_imgs --quant none``), the BatchNorm-folded bf16 forward (``--quant
+    bf16``) and the int8 one (``--quant int8``), each beside its bound,
+    with the int8 forward's PSNR against the f32 eval forward on the same
+    latents, gated at 25 dB, and the int8 layers' weight bytes."""
+    from eadgan_tpu_torch.tools.quant_bench import measure
 
-    sd, x = inference_generator(torch)
-    batch = x[0].shape[0]
-    model = CelebaGenerator()
-    model.load_state_dict(sd)
-    model = model.cuda().eval()
-    folded = make_celeba_infer(sd, compute_dtype=torch.bfloat16, device="cuda")
-
-    def f32():
-        with torch.no_grad():
-            return model(*x)
-
-    flops = 2 * convt_macs(*CELEBA_G_CONVT) * batch
-    params = sum(v.numel() for k, v in sd.items() if k.endswith((".weight", ".bias")))
-    out_bytes = batch * 3 * 64 * 64 * 4
-    records = {}
-    for name, fn, peak, wbytes in (("f32_eval", f32, F32_FLOPS_PER_S, 4),
-                                   ("bf16_folded", lambda: folded(*x), BF16_TENSOR_FLOPS_PER_S, 2)):
-        ms = device_ms(fn, 20, cycles)
-        bound_ms, bound_by = bound(params * wbytes + out_bytes, flops, peak)
-        records[name] = {"ms": ms, "img_per_s": batch / ms * 1e3, "bound_ms": bound_ms,
-                         "bound_by": bound_by, "tflop_per_s": flops / ms / 1e9}
-    record = {"inference": "celeba_generator", "batch_size": batch,
-              "gflop_per_batch": flops / 1e9, **records}
+    record = measure(128, cycles)
     emit(record)
+    check(record["int8"]["psnr_db_vs_f32_eval"] > INT8_PSNR_DB, f"int8 PSNR {record['int8']}")
     return record
+
+
+def time_int8_kernels(torch, cycles, errs, launches):
+    """The two int8 kernels at the generator's three layers, batch 128, by
+    CUDA events, each beside its plain version (on the card), its bound
+    and its yardsticks: for ``int8_convt``, ``torch._int_mm`` on the
+    four phases' im2col matrices (built beforehand) and cuDNN's bf16
+    ``F.conv_transpose2d`` at the same shape; for ``quantize_int8``,
+    ``torch.amax(x.abs())`` and the quantize expression.  The entries'
+    times are sums over the three layers (one forward's worth), with the
+    layers alongside."""
+    import torch.nn.functional as F
+
+    from eadgan_tpu_torch.ops.quant import (int8_convt_relu, int8_convt_relu_plain,
+                                            quantize_activation, quantize_activation_plain)
+    from eadgan_tpu_torch.tools.quant_bench import int8_layer_inputs
+    from eadgan_tpu_torch.utils.timing import device_ms, host_enqueue_ms
+
+    batch = 128
+    convt_layers, quant_layers = [], []
+    for h, cin, cout in INT8_LAYERS:
+        xq, a_scale, layer, act = int8_layer_inputs(batch, h, cin, cout)
+        xq, a_scale, act = xq.cuda(), a_scale.cuda(), act.cuda()
+        layer = type(layer)(*(t.cuda() for t in (layer.wq, layer.wp, layer.w_scale, layer.bias)))
+        # im2col of each phase: the four taps' rows, K = 4 * Cin, as the kernel reads them
+        padded = F.pad(xq, (0, 0, 1, 1, 1, 1))
+        cols = [torch.cat([padded[:, 1 + py - ty:1 + py - ty + h, 1 + px - tx:1 + px - tx + h]
+                           for ty in range(2) for tx in range(2)], dim=-1).reshape(-1, 4 * cin)
+                for py in range(2) for px in range(2)]
+        mats = [layer.wp[p].reshape(cout, 4 * cin).t() for p in range(4)]
+        x_bf16 = torch.randn(batch, cin, h, h, device="cuda").to(torch.bfloat16)
+        w_bf16 = layer.wq.to(torch.bfloat16)
+        macs = batch * (2 * h) ** 2 * cout * cin * 4
+        nbytes = xq.numel() + layer.wp.numel() + batch * (2 * h) ** 2 * cout * 4 + 8 * cout
+        bound_ms, bound_by = bound(nbytes, 2 * macs, INT8_TENSOR_OPS_PER_S)
+        convt_layers.append({
+            "shape": [batch, h, h, cin, cout],
+            "ms": device_ms(lambda: int8_convt_relu(xq, a_scale, layer), 50, cycles),
+            "plain_ms": device_ms(lambda: int8_convt_relu_plain(xq, a_scale, layer.wq, layer.w_scale,
+                                                                layer.bias), 3, cycles),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": device_ms(lambda: [torch._int_mm(a, b) for a, b in zip(cols, mats)], 50,
+                                    cycles),
+            "library_bf16_ms": device_ms(lambda: F.conv_transpose2d(x_bf16, w_bf16, None, 2, 1), 50,
+                                         cycles),
+            "wrapper_enqueue_ms_host_clock": host_enqueue_ms(
+                lambda: int8_convt_relu(xq, a_scale, layer), 200),
+        })
+        convt_layers[-1]["tops_per_s"] = 2 * macs / convt_layers[-1]["ms"] / 1e9
+        nhwc = h != 4
+        n = act.numel()
+
+        def library(act=act):
+            scale = torch.clamp_min(torch.amax(act.abs()), 1e-12) / 127.0
+            return torch.clamp(torch.round(act / scale), -127, 127).to(torch.int8)
+
+        quant_layers.append({
+            "shape": list(act.shape), "layout": "nhwc" if nhwc else "nchw",
+            "ms": device_ms(lambda: quantize_activation(act, nhwc), 50, cycles),
+            "plain_ms": device_ms(lambda: quantize_activation_plain(act, nhwc), 20, cycles),
+            "bound_ms": bound(5 * n, 0, 1)[0], "bound_by": "bytes",
+            "bound_ms_two_reads": bound(9 * n, 0, 1)[0],
+            "library_ms": device_ms(library, 50, cycles),
+            "wrapper_enqueue_ms_host_clock": host_enqueue_ms(
+                lambda: quantize_activation(act, nhwc), 200),
+        })
+        del cols, mats, padded
+    entries = []
+    for name, source, line, layers, extra in (
+            ("int8_convt", "int8_convt.cu", 108, convt_layers, ("library_bf16_ms",)),
+            ("quantize_int8", "quantize_int8.cu", 124, quant_layers, ("bound_ms_two_reads",))):
+        total = {k: sum(layer[k] for layer in layers)
+                 for k in ("ms", "plain_ms", "bound_ms", "library_ms", *extra)}
+        by_ops = sum(layer["bound_ms"] for layer in layers if layer["bound_by"] == "operations")
+        entries.append({
+            "name": name, "route": "cuda", "source": f"eadgan_tpu_torch/csrc/{source}",
+            "replaces": f"eadgan_tpu/ops/quant.py:{line}", "replaces_kind": "xla_lowering",
+            "launches": launches[name], "max_abs_err": errs[name], **total,
+            # the larger share of the summed bound
+            "bound_by": "operations" if 2 * by_ops >= total["bound_ms"] else "bytes",
+            "timed_at": "batch 128, the three int8 layers summed", "layers": layers,
+        })
+    emit({"int8_kernel_timing": entries})
+    return entries
 
 
 def time_representer(torch, cycles):
@@ -1155,9 +1335,10 @@ def time_representer(torch, cycles):
     return record
 
 
-def phase_timing(torch, errs, probe):
+def phase_timing(torch, errs, probe, int8_launches):
     """Kernel records for the ``kernels`` line; the fused conv's kernel
-    and library times are those its probe measured on the main path."""
+    and library times are those its probe measured on the main path, the
+    int8 kernels' launches those of ``gen_imgs --quant int8``."""
     from eadgan_tpu_torch.ops.fused_conv import fused_conv_lrelu_plain
     from eadgan_tpu_torch.ops.fused_conv_cuda import fused_conv_lrelu_cuda
     from eadgan_tpu_torch.tools.fused_conv_probe import counts
@@ -1258,7 +1439,8 @@ def phase_timing(torch, errs, probe):
         "plain_elem": probe["plain_elem"],
     }
     emit({"fused_conv_timing": conv_kernel})
-    return [warp_kernel, pair_kernel, conv_kernel]
+    return [warp_kernel, pair_kernel, conv_kernel, *time_int8_kernels(torch, cycles, errs,
+                                                                        int8_launches)]
 
 
 def main() -> None:
@@ -1273,22 +1455,25 @@ def main() -> None:
     print("== phase 2: kernels vs plain versions on the card", flush=True)
     errs = phase_kernel_vs_plain(torch)
     print("== phase 3: train steps, CPU vs CUDA (CelebA; dSprites pxy and rp; MNIST and its "
-          "approximator), chained vs per step, folded generator vs eval, the scorer's "
-          "Representer CPU vs CUDA", flush=True)
+          "approximator), chained vs per step, folded bf16 and int8 generators vs eval, the "
+          "scorer's Representer CPU vs CUDA", flush=True)
     phase_step_parity(torch)
     phase_step_parity_dsprites(torch)
     phase_step_parity_mnist(torch)
     phase_chain_parity(torch)
     phase_infer_parity(torch)
     phase_representer_parity(torch)
-    print("== phase 4: main paths (the CelebA trainer and gen_imgs, the dSprites trainers and "
-          "the scorer, the MNIST pipeline and generate_image, then the fused conv's probe)",
-          flush=True)
-    warp_by_path = {"celeba": phase_trainer(torch)["warp_affine"], **phase_dsprites_trainers(torch),
+    print("== phase 4: main paths (the CelebA trainer and gen_imgs none|bf16|int8, its save "
+          "window inline vs the event worker, the dSprites trainers and the scorer, the MNIST "
+          "pipeline and generate_image, then the fused conv's probe)", flush=True)
+    celeba = phase_trainer(torch)
+    phase_save_window(torch)
+    warp_by_path = {"celeba": celeba["warp_affine"], **phase_dsprites_trainers(torch),
                     "mnist": phase_mnist_trainers(torch)}
     probe_launches, probe = phase_probe(torch)
     print("== phase 5: timing", flush=True)
-    kernels = phase_timing(torch, errs, probe)
+    int8_launches = {k: celeba[k] for k in ("int8_convt", "quantize_int8")}
+    kernels = phase_timing(torch, errs, probe, int8_launches)
     # the warp's paths by the Pallas body the TPU took there: _kernel for
     # C * W > 128 (CelebA, colored dSprites), _kernel_pair otherwise
     paths = {"warp_affine": ("celeba", "pxy_color", "rp_color", "score_color"),
@@ -1300,7 +1485,7 @@ def main() -> None:
             by_path = {p: warp_by_path[p] for p in paths[k["name"]]}
             k["launches"] = sum(by_path.values())
             k["launches_by_path"] = by_path
-        else:
+        elif k["name"] in probe_launches:
             k.update(launches=probe_launches[k["name"]])
         check(k["launches"] > 0, f"{k['name']} was not launched on its main path")
         if k["name"] == "warp_affine_pair":

@@ -91,10 +91,11 @@ def main(argv=None) -> None:
     state = maybe_resume(state, opt.resume, opt.ckpt_dir, STATE_STEM)
     step = make_celeba_gan_step(config)
     logger = MetricLogger(opt.jsonl or None, print_every=10)
-    apply_g = generator_apply(lambda: state.g)
 
     def on_batch(batches_done, state, metrics, batch):
         if batches_done % config.sample_interval == 0:
+            # the state handed in: on the chained engine's worker, a snapshot
+            apply_g = generator_apply(lambda: state.g)
             real = batch[0][:100]
             scaled = warp_batch(real, batches_done, config.code_dim)
             celeba_training_grids(

@@ -8,8 +8,10 @@ port's own ``checkpoint_%d.tar`` (``--checkpoint``,
 writes 10x10 grids into ``<out_dir>/varying_c1..8/`` on the CUDA card
 (``EADGAN_PLATFORM=cpu`` for the CPU).  ``--quant none`` runs the
 generator's eval-mode forward in float32; ``--quant bf16`` the
-BatchNorm-folded bf16 forward (``ops/quant.py``).  ``--quant int8`` is
-not ported yet.
+BatchNorm-folded bf16 forward; ``--quant int8`` the folded forward with
+int8 mid layers, on the card through the ``quantize_int8`` and
+``int8_convt`` kernels (``ops/quant.py``): 8 forwards of batch 100, each
+3 transposed-conv launches and 6 quantization launches.
 """
 
 from __future__ import annotations
@@ -27,10 +29,11 @@ from eadgan_tpu_torch.sample.figures import celeba_inference_grids
 from eadgan_tpu_torch.utils import platform_device
 
 
-def folded_apply(state_dict, device):
+def folded_apply(state_dict, device, quant="none"):
     """Numpy (z, labels, code) in, NHWC numpy images out: the BN-folded
-    bf16 forward on ``device``."""
-    fwd = make_celeba_infer(state_dict, quant="none", compute_dtype=torch.bfloat16, device=device)
+    forward on ``device``, bf16 (``quant="none"``) or with int8 mid
+    layers (``"int8"``) and bf16 ends."""
+    fwd = make_celeba_infer(state_dict, quant=quant, compute_dtype=torch.bfloat16, device=device)
 
     def apply(*inputs):
         out = fwd(*[torch.as_tensor(np.asarray(x), device=device) for x in inputs])
@@ -47,22 +50,17 @@ def main(argv=None) -> None:
     parser.add_argument(
         "--quant", choices=["none", "bf16", "int8"], default="none",
         help="inference path: none = the float32 eval-mode forward; bf16 = the BatchNorm-folded "
-        "bf16 forward; int8 = quantized mid layers (not ported yet)",
+        "bf16 forward; int8 = the folded forward with int8 mid layers",
     )
     opt = parser.parse_args(argv)
     print(opt)
-    if opt.quant == "int8":
-        raise SystemExit(
-            "--quant int8 is not ported yet (ROADMAP.md, section 1, item 9: interop CLIs and "
-            "int8 serving); use --quant none or --quant bf16"
-        )
     disable_tf32()
     device = platform_device()
 
     checkpoint = torch.load(opt.checkpoint, map_location="cpu", weights_only=True)
     state_dict = checkpoint["generator_state_dict"]
-    if opt.quant == "bf16":
-        apply_g = folded_apply(state_dict, device)
+    if opt.quant in ("bf16", "int8"):
+        apply_g = folded_apply(state_dict, device, quant="none" if opt.quant == "bf16" else "int8")
     else:
         model = CelebaGenerator()
         model.load_state_dict(state_dict)

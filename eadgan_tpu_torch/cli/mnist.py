@@ -110,11 +110,12 @@ def main(argv=None) -> None:
     state = maybe_resume(state, opt.resume, opt.ckpt_dir, STATE_STEM)
     step = make_mnist_gan_step(config)
     logger = MetricLogger(opt.jsonl or None)
-    apply_g = generator_apply(lambda: state.g)
     save_every = config.sample_interval * 10
 
     def on_batch(batches_done, state, metrics, batch):
         if batches_done % config.sample_interval == 0:
+            # the state handed in: on the chained engine's worker, a snapshot
+            apply_g = generator_apply(lambda: state.g)
             real = batch[0][:100]
             scaled = warp_batch(real, batches_done, config.code_dim)
             mnist_training_grids(

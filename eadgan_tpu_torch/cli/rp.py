@@ -117,11 +117,12 @@ def main(argv=None, colored: bool = False) -> None:
     state = maybe_resume(state, opt.resume, opt.ckpt_dir, STATE_STEM)
     step = make_sprites_gan_step(config)
     logger = MetricLogger(opt.jsonl or None)
-    apply_g = generator_apply(lambda: state.g)
     save_every = config.sample_interval * (50 if colored else 500)
 
     def on_batch(batches_done, state, metrics, batch):
         if batches_done % (config.sample_interval * 2) == 0:
+            # the state handed in: on the chained engine's worker, a snapshot
+            apply_g = generator_apply(lambda: state.g)
             align, trans = render_pair(state.pxy, batch[0][:100], batches_done, config)
             sprites_training_grids(
                 apply_g, align.cpu().numpy(), trans.cpu().numpy(), opt.out_dir, batches_done,

@@ -40,6 +40,9 @@ _SIGNATURES = {
     "eadgan_warp_affine_f32": (_ptr, _ptr, _ptr, _int, _int, _int, _int, _int, _int, _ptr),
     "eadgan_warp_affine_bf16": (_ptr, _ptr, _ptr, _int, _int, _int, _int, _int, _int, _ptr),
     "eadgan_fused_conv_lrelu_bf16": (_ptr, _ptr, _ptr, _ptr, _int, _int, _int, _int, _float, _ptr),
+    "eadgan_int8_amax": (_ptr, _ptr, _int, _ptr),
+    "eadgan_int8_quantize": (_ptr, _ptr, _ptr, _ptr, _int, _int, _int, _int, _ptr),
+    "eadgan_int8_convt_s2": (_ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _int, _int, _int, _int, _int, _ptr),
 }
 
 

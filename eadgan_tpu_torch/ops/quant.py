@@ -1,33 +1,71 @@
-"""CelebA generator inference with BatchNorm folded into the convolutions.
+"""CelebA generator inference with BatchNorm folded into the convolutions,
+in bf16 or with int8 mid layers.
 
-PyTorch counterpart of the unquantized half of ``eadgan_tpu/ops/quant.py``
-(``fold_celeba_generator_bn`` and ``make_celeba_infer(quant="none")``).
-Eval-mode BatchNorm folds into the ConvTranspose before it exactly:
+PyTorch counterpart of ``eadgan_tpu/ops/quant.py``.  Eval-mode
+BatchNorm folds into the ConvTranspose before it exactly:
 ``g * (conv(x) + b - mu) / sqrt(var + eps) + beta`` is a conv with weight
 ``w * s`` and bias ``(b - mu) * s + beta``, ``s = g / sqrt(var + eps)``
-taken per output channel.  The folded forward runs five transposed
+taken per output channel.
+
+``make_celeba_infer(quant="none")`` runs the five folded transposed
 convolutions (torch's own, cuDNN on the card) in ``compute_dtype`` with
 float32 biases, a ReLU after layers 1-3, and a float32 tanh, as the JAX
 function does; it matches ``CelebaGenerator`` in eval mode.
 
-The int8 path (``quantize_kernel_per_channel``, ``quant="int8"``) is not
-ported here.
+``quant="int8"`` (the default, as in the JAX package) quantizes the three
+k4 s2 p1 mid layers, which carry ~99% of the forward's multiply-adds:
+
+- weights: symmetric per output channel, ``scale = max(amax, 1e-12) /
+  127`` over (in, kh, kw), ``q = clamp(round(w / scale), -127, 127)``
+  (:func:`quantize_kernel_per_channel`);
+- activations: symmetric per tensor, from the tensor's own abs-max, in
+  the same form (:func:`quantize_activation`; on the card the
+  ``quantize_int8`` kernel, which also writes the int8 tensor NHWC);
+- the transposed conv accumulates int8 products in int32, then
+  ``acc * (a_scale * w_scale) + bias`` and ReLU in float32
+  (:func:`int8_convt_relu`; on the card the ``int8_convt`` kernel, which
+  writes NHWC float32).
+
+Layers 0 and 4 stay in ``compute_dtype``; the output is a float32 tanh.
+Each op dispatches on its input's device: a CUDA tensor goes to the
+kernel (``ops/quant_cuda.py``, which launches it or raises), a CPU
+tensor to the plain version here, which is also what the kernel is held
+against.  Nothing on the int8 path waits for the card: the activation
+scale stays on the device, where the convolution's epilogue reads it.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Dict, List, Tuple
 
 import torch
 import torch.nn.functional as F
 
-__all__ = ["fold_celeba_generator_bn", "make_celeba_infer"]
+__all__ = [
+    "fold_celeba_generator_bn",
+    "quantize_kernel_per_channel",
+    "repack_convt_weight",
+    "quantize_activation",
+    "quantize_activation_plain",
+    "convt_int8_plain",
+    "int8_convt_relu",
+    "int8_convt_relu_plain",
+    "Int8ConvT",
+    "make_celeba_infer",
+    "QUANT_MODES",
+]
 
+QUANT_MODES = ("int8", "none")
 # (stride, padding) of each ConvTranspose of CelebaGenerator (4x4 kernels)
 _LAYER_GEOM = ((1, 0), (2, 1), (2, 1), (2, 1), (2, 1))
-_BN_LAYERS = (1, 2, 3)  # the ConvTransposes followed by BatchNorm and ReLU
+_BN_LAYERS = (1, 2, 3)  # the ConvTransposes followed by BatchNorm and ReLU; int8 under quant="int8"
 # their keys in CelebaGenerator's state_dict: conv_blocks.{conv}, BN at .{conv + 1}
 _CONV_KEYS = (0, 1, 4, 7, 10)
+# k4 s2 p1 transposed conv by output parity: output row 2m + p takes kernel
+# rows KY[p][t] from input rows m + DY[p][t] (t = 0, 1); columns alike
+KY = ((1, 3), (0, 2))
+DY = ((0, -1), (1, 0))
 
 
 def fold_celeba_generator_bn(state_dict: Dict[str, torch.Tensor], eps: float = 1e-5
@@ -54,27 +92,133 @@ def fold_celeba_generator_bn(state_dict: Dict[str, torch.Tensor], eps: float = 1
     return layers
 
 
-def make_celeba_infer(state_dict: Dict[str, torch.Tensor], quant: str = "none",
+def quantize_kernel_per_channel(weight: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-output-channel int8 of a ConvTranspose2d weight (in,
+    out, kh, kw): ``(q, scale)`` with ``weight ~= q * scale`` and scale
+    shaped (out,), float32."""
+    amax = weight.abs().amax(dim=(0, 2, 3))
+    scale = torch.clamp_min(amax, 1e-12) / 127.0
+    q = torch.clamp(torch.round(weight / scale[None, :, None, None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def repack_convt_weight(q: torch.Tensor) -> torch.Tensor:
+    """The ``int8_convt`` kernel's weight layout: (in, out, 4, 4) ->
+    (phase, out, tap, in), contiguous, with phase = 2 * py + px the
+    output's parity and tap = 2 * ty + tx, holding kernel entry
+    ``(KY[py][ty], KY[px][tx])``: for each phase a (Cout, 4 * Cin) matrix
+    whose reduction axis is contiguous."""
+    if q.dim() != 4 or q.shape[2:] != (4, 4):
+        raise ValueError(f"want a (in, out, 4, 4) weight, got {tuple(q.shape)}")
+    phases = []
+    for py in range(2):
+        for px in range(2):
+            taps = [q[:, :, KY[py][ty], KY[px][tx]] for ty in range(2) for tx in range(2)]
+            phases.append(torch.stack(taps, dim=1).permute(2, 1, 0))  # (out, tap, in)
+    return torch.stack(phases).contiguous()
+
+
+def quantize_activation_plain(x: torch.Tensor, nhwc: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dynamic symmetric per-tensor int8 of a float32 activation, NCHW
+    (``nhwc=False``) or NHWC: ``(q, scale)`` with ``q`` int8 NHWC,
+    contiguous, and ``scale = max(max |x|, 1e-12) / 127`` a 0-d float32
+    tensor; ``q = clamp(round(x / scale), -127, 127)``, rounding half to
+    even, as ``eadgan_tpu/ops/quant.py::_quantize_activation``."""
+    if not nhwc:
+        x = x.permute(0, 2, 3, 1)
+    amax = x.abs().amax()
+    scale = torch.clamp_min(amax, 1e-12) / 127.0
+    q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+    return q.contiguous(), scale
+
+
+def quantize_activation(x: torch.Tensor, nhwc: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`quantize_activation_plain` on a CPU tensor; the
+    ``quantize_int8`` kernel on a CUDA one."""
+    if x.is_cuda:
+        from eadgan_tpu_torch.ops import quant_cuda
+
+        return quant_cuda.quantize_int8_cuda(x, nhwc)
+    return quantize_activation_plain(x, nhwc)
+
+
+def convt_int8_plain(xq: torch.Tensor, wq: torch.Tensor, stride: int, pad: int) -> torch.Tensor:
+    """The int8 transposed conv with int32 sums: ``xq`` int8 NHWC, ``wq``
+    int8 (in, out, kh, kw); returns int32 NHWC.  Computed in float64,
+    which holds every sum exactly (at most 127^2 * 4 * Cin < 2^53)."""
+    y = F.conv_transpose2d(xq.permute(0, 3, 1, 2).double(), wq.double(), None, stride, pad)
+    return y.permute(0, 2, 3, 1).to(torch.int32).contiguous()
+
+
+def int8_convt_relu_plain(xq: torch.Tensor, a_scale: torch.Tensor, wq: torch.Tensor,
+                          w_scale: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """The ``int8_convt`` kernel's function: the k4 s2 p1 int8 transposed
+    conv of NHWC ``xq``, then ``acc * (a_scale * w_scale) + bias`` and
+    ReLU in float32; NHWC float32 out."""
+    acc = convt_int8_plain(xq, wq, 2, 1)
+    return torch.relu(acc.float() * (a_scale * w_scale) + bias)
+
+
+@dataclasses.dataclass
+class Int8ConvT:
+    """One quantized k4 s2 p1 layer: int8 weight (in, out, 4, 4), its
+    kernel repack (:func:`repack_convt_weight`), per-channel scales and
+    the folded float32 bias."""
+
+    wq: torch.Tensor
+    wp: torch.Tensor
+    w_scale: torch.Tensor
+    bias: torch.Tensor
+
+    @classmethod
+    def from_folded(cls, weight: torch.Tensor, bias: torch.Tensor) -> "Int8ConvT":
+        wq, w_scale = quantize_kernel_per_channel(weight)
+        return cls(wq, repack_convt_weight(wq), w_scale, bias)
+
+
+def int8_convt_relu(xq: torch.Tensor, a_scale: torch.Tensor, layer: Int8ConvT) -> torch.Tensor:
+    """:func:`int8_convt_relu_plain` on CPU tensors; the ``int8_convt``
+    kernel on CUDA ones."""
+    if xq.is_cuda:
+        from eadgan_tpu_torch.ops import quant_cuda
+
+        return quant_cuda.int8_convt_cuda(xq, layer.wp, a_scale, layer.w_scale, layer.bias)
+    return int8_convt_relu_plain(xq, a_scale, layer.wq, layer.w_scale, layer.bias)
+
+
+def make_celeba_infer(state_dict: Dict[str, torch.Tensor], quant: str = "int8",
                       compute_dtype=torch.bfloat16, eps: float = 1e-5,
                       device=None) -> Callable:
     """``fwd(z, labels, code) -> (B, 3, 64, 64)`` float32 images: the
-    BN-folded eval-mode CelebA generator.  Each layer convolves its input
-    and weight cast to ``compute_dtype``, adds the float32 bias to the
-    float32 result, and (layers 1-3) takes a ReLU; the last output goes
-    through a float32 tanh.  The weights live on ``device`` (the state's
-    device when None).  Only ``quant="none"`` is ported."""
-    if quant != "none":
-        raise ValueError(f"quant={quant!r} is not ported: only 'none' (the folded forward)")
+    BN-folded eval-mode CelebA generator.  Each float layer convolves its
+    input and weight cast to ``compute_dtype``, adds the float32 bias to
+    the float32 result, and (layers 1-3) takes a ReLU; under
+    ``quant="int8"`` layers 1-3 are the int8 ones (module docstring).
+    The last output goes through a float32 tanh.  The weights live on
+    ``device`` (the state's device when None)."""
+    if quant not in QUANT_MODES:
+        raise ValueError(f"unknown quant mode {quant!r}: one of {QUANT_MODES}")
     folded = fold_celeba_generator_bn(state_dict, eps=eps)
     if device is not None:
         folded = [(w.to(device), b.to(device)) for w, b in folded]
-    prepared = [(w.to(compute_dtype), b) for w, b in folded]
+    prepared = [
+        Int8ConvT.from_folded(w, b) if quant == "int8" and i in _BN_LAYERS else (w.to(compute_dtype), b)
+        for i, (w, b) in enumerate(folded)
+    ]
 
     @torch.no_grad()
     def fwd(z, labels, code):
         x = torch.cat([z, labels, code], dim=-1).float()[:, :, None, None]
-        for i, (weight, bias) in enumerate(prepared):
+        nhwc = False  # x's layout: the int8 layers take and give NHWC
+        for i, layer in enumerate(prepared):
+            if isinstance(layer, Int8ConvT):
+                xq, a_scale = quantize_activation(x, nhwc)
+                x, nhwc = int8_convt_relu(xq, a_scale, layer), True  # ReLU fused
+                continue
+            weight, bias = layer
             stride, pad = _LAYER_GEOM[i]
+            if nhwc:
+                x, nhwc = x.permute(0, 3, 1, 2), False  # a channels-last view
             y = F.conv_transpose2d(x.to(compute_dtype), weight, None, stride, pad)
             x = y.float() + bias[None, :, None, None]
             if i in _BN_LAYERS:

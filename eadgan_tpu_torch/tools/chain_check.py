@@ -15,14 +15,16 @@ steps:
   makes, the dataset resident on the card and each batch gathered there,
   the run's first step eager, then the step captured once and replayed,
   the metrics drained one window behind, the event batches made on the
-  card.
+  card, and the events run on the engine's worker with a snapshot of the
+  state (``EADGAN_SYNC_EVENTS=1`` in the environment runs them inline).
 
 It reports ``spread``, the largest relative difference of a logged loss
 between A and B, and ``err``, the largest between C and A, with the
 warp's launches in C.  cuDNN is held to its deterministic algorithms, so
 a step is a function of its inputs: the check passes when ``spread`` and
 ``err`` are both 0, C logged every step, ran its events at A's steps on
-A's batches bit for bit, ended at A's step, and launched the warp
+A's batches bit for bit, with the first parameter of the state's first
+model as A's there, ended at A's step, and launched the warp
 ``WARPS_PER_STEP`` times a step.
 
 Prints one JSON line; exits non-zero when the check fails.  Needs a CUDA
@@ -33,7 +35,6 @@ from __future__ import annotations
 
 import argparse
 import contextlib
-import copy
 import json
 import sys
 
@@ -41,26 +42,13 @@ import numpy as np
 import torch
 
 from eadgan_tpu_torch.ops import stn_cuda
+from eadgan_tpu_torch.train.chain import snapshot_state
 from eadgan_tpu_torch.train.engine import run_epochs
 from eadgan_tpu_torch.utils.profiler import PIPELINES, build_step
 
-__all__ = ["WARPS_PER_STEP", "clone_state", "run_check", "main"]
+__all__ = ["WARPS_PER_STEP", "run_check", "main"]
 
 WARPS_PER_STEP = {"celeba": 1, "pxy": 1, "pxy_color": 1, "rp": 3, "rp_color": 3, "mnist": 1}
-
-
-def clone_state(state):
-    """A deep copy of a train state: models, optimizers over the copied
-    parameters, and a generator at the same position of its stream."""
-    rng = state.rng
-    state.rng = None
-    try:
-        twin = copy.deepcopy(state)
-    finally:
-        state.rng = rng
-    twin.rng = torch.Generator(device=rng.device)
-    twin.rng.set_state(rng.get_state())
-    return twin
 
 
 class _Records:
@@ -99,10 +87,12 @@ def run_check(pipeline: str = "pxy", steps: int = 8, chain: int = 4, batch: int 
 
         def on_batch(i, state, metrics, batches):
             if i % chain == 0:  # as the trainers gate their grids and saves
-                events.append((i, batches[0].cpu().numpy()))
+                model = next(v for v in vars(state).values() if isinstance(v, torch.nn.Module))
+                events.append((i, batches[0].cpu().numpy(),
+                               next(model.parameters()).detach().cpu().numpy()))
 
         state = run_epochs(
-            n_epochs=steps, data=data, batch_size=batch, state=clone_state(state0), step_fn=step,
+            n_epochs=steps, data=data, batch_size=batch, state=snapshot_state(state0), step_fn=step,
             on_batch=on_batch, device="cuda", max_steps=steps, logger=records, chain=k,
             chain_periods=(chain,), **prep,
         )
@@ -118,8 +108,9 @@ def run_check(pipeline: str = "pxy", steps: int = 8, chain: int = 4, batch: int 
     keys = sorted(a[1][0])
     table = [np.array([[r[s][k] for k in keys] for s in sorted(r)]) for r in (a[1], b[1], c[1])]
     logged = [sorted(r[1]) for r in (a, b, c)]
-    events_equal = [i for i, _ in c[2]] == [i for i, _ in a[2]] and all(
-        np.array_equal(x, y) for (_, x), (_, y) in zip(c[2], a[2])
+    events_equal = [e[0] for e in c[2]] == [e[0] for e in a[2]] and all(
+        np.array_equal(x, y) and np.array_equal(px, py)
+        for (_, x, px), (_, y, py) in zip(c[2], a[2])
     )
     spread = _rel(table[1], table[0]) if logged[1] == logged[0] else float("inf")
     err = _rel(table[2], table[0]) if logged[2] == logged[0] else float("inf")
@@ -127,7 +118,7 @@ def run_check(pipeline: str = "pxy", steps: int = 8, chain: int = 4, batch: int 
     return {
         "chain_check": pipeline, "batch": batch, "steps": steps, "chain": chain,
         "keys": keys, "spread": spread, "err": err,
-        "final_step": [a[0], c[0]], "event_steps": [i for i, _ in c[2]],
+        "final_step": [a[0], c[0]], "event_steps": [e[0] for e in c[2]],
         "event_batches_equal": events_equal, "warp_launches": warps,
         "expected_warp_launches": want_warps,
         "last_per_step": table[0][-1].tolist(), "last_chained": table[2][-1].tolist(),

@@ -16,7 +16,8 @@ replayed K times per window:
   returns its metrics in one tensor;
 - the window planner (:func:`plan_windows`, a copy of the JAX one) puts
   every sample/checkpoint step at the end of a window, where the
-  engine runs the side effects.
+  engine runs the side effects, on an :class:`EventWorker` against a
+  :func:`snapshot_state` of the train state.
 
 On the CPU the same windows, gather and packed metrics run with the
 step called eagerly K times; that path exists only because the caller
@@ -25,6 +26,9 @@ asked for the CPU.
 
 from __future__ import annotations
 
+import copy
+import queue
+import threading
 from typing import Callable, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
@@ -40,6 +44,8 @@ __all__ = [
     "gather_prepare",
     "LazyLastMetrics",
     "LazyHostBatch",
+    "EventWorker",
+    "snapshot_state",
 ]
 
 
@@ -310,3 +316,78 @@ class LazyHostBatch:
     @property
     def dtype(self):
         return self._get().dtype
+
+
+class EventWorker:
+    """One ordered background thread for the side effects of event
+    windows (sample grids, checkpoint writes), after
+    ``eadgan_tpu/train/chain.py::EventWorker``.
+
+    A CelebA save window copies a ~520 MB train state to the host and
+    serializes it, and renders and writes PNG grids; inline, the card
+    idles that long.  The engine instead hands the callback a snapshot of
+    the state (:func:`snapshot_state`) and submits it here, so the copy,
+    the serialization and the PNGs overlap the next windows' device work.
+    The queue is bounded (``maxsize``): when events outpace the worker,
+    :meth:`submit` blocks.  An exception in a callback re-raises at the
+    next :meth:`submit`, :meth:`flush` or :meth:`close`, so a failed
+    checkpoint write cannot pass silently."""
+
+    def __init__(self, maxsize: int = 2):
+        self._q = queue.Queue(maxsize=maxsize)
+        self._err = None
+        self._t = threading.Thread(target=self._run, name="eadgan-event-worker", daemon=True)
+        self._t.start()
+
+    def _run(self):
+        while True:
+            fn = self._q.get()
+            try:
+                if fn is None:
+                    return
+                fn()
+            except BaseException as e:  # noqa: BLE001 — surfaced on submit/flush/close
+                self._err = e
+            finally:
+                fn = None  # drop the callback's references (a snapshot) before waiting
+                self._q.task_done()
+
+    def _check(self):
+        if self._err is not None:
+            err, self._err = self._err, None
+            raise err
+
+    def submit(self, fn: Callable) -> None:
+        self._check()
+        self._q.put(fn)
+
+    def flush(self) -> None:
+        """Wait until every submitted callback has run."""
+        self._q.join()
+        self._check()
+
+    def close(self) -> None:
+        self._q.put(None)
+        self._t.join()
+        self._check()
+
+
+def snapshot_state(state):
+    """A copy of a train state that shares no storage with it: its
+    models (parameters, buffers), optimizers (moments and step counts,
+    over the copied parameters) and step, deep-copied, and a generator at
+    the same position of its stream.  The tensors are cloned on the
+    current stream, so on the card the copy is enqueued behind the work
+    already issued that writes them, and ahead of any issued later."""
+    rng = getattr(state, "rng", None)
+    if rng is not None:
+        state.rng = None
+    try:
+        twin = copy.deepcopy(state)
+    finally:
+        if rng is not None:
+            state.rng = rng
+    if rng is not None:
+        twin.rng = torch.Generator(device=rng.device)
+        twin.rng.set_state(rng.get_state())
+    return twin

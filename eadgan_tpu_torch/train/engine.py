@@ -15,7 +15,9 @@ batches:
   CUDA graph of the step replayed per step, each batch gathered on the
   card from the resident dataset (uint8 images, or MNIST's float32
   images already in [-1, 1]); side effects run at the window ends that
-  ``plan_windows`` puts on the event steps.
+  ``plan_windows`` puts on the event steps, on a background
+  ``EventWorker`` against a snapshot of the state (``EADGAN_SYNC_EVENTS=1``
+  runs them inline).
 
 A run resumed at a step inside an epoch starts from fresh generators, as
 the JAX engines do: the resumed epoch draws a fresh permutation and runs
@@ -29,6 +31,8 @@ the port does not copy that.)
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import json
 import os
 import time
@@ -39,11 +43,13 @@ import torch
 
 from eadgan_tpu_torch.models.layers import no_stat_updates
 from eadgan_tpu_torch.train.chain import (
+    EventWorker,
     LazyHostBatch,
     LazyLastMetrics,
     make_chained_step,
     normalize_prepare,
     plan_windows,
+    snapshot_state,
 )
 from eadgan_tpu_torch.utils.logging import MetricLogger
 
@@ -188,9 +194,26 @@ def _run_epochs_chained(
     pinned host memory behind it, are waited for and logged one record
     per step, so the host never waits for the window it has just
     enqueued.  ``on_batch`` then runs at event window ends with the
-    window's last step: its index, the state, the metrics (fetched only
-    if read) and that step's batch, made on the device.  Events run
-    inline: a checkpoint written there holds the true post-window state.
+    window's last step: its index, the state, the metrics and that
+    step's batch, made on the device.
+
+    With ``chain_periods`` declared (and ``EADGAN_SYNC_EVENTS`` not
+    ``1``) an event runs on an :class:`~eadgan_tpu_torch.train.chain.
+    EventWorker`, as in the JAX engine: the host enqueues a snapshot of
+    the state (:func:`~eadgan_tpu_torch.train.chain.snapshot_state`,
+    cloned on the card behind the window, sharing no storage with the
+    live state that the next replays write in place) and a CUDA event
+    behind it, and goes on to the next window.  The worker waits for that
+    event, reads the metrics from the window's pinned host copy, and calls
+    ``on_batch`` on a CUDA stream of its own with the snapshot, the
+    metrics as a dict and the event batch (a tensor no one else holds); it
+    drops the snapshot only after every device operation it issued has
+    completed.  The worker is closed in a ``finally``: every queued
+    checkpoint is written, or its error raised, before the engine
+    returns.  A graph capture must not overlap the worker's device work,
+    so the engine waits for the worker before the window that captures.
+    Without periods, or with ``EADGAN_SYNC_EVENTS=1``, ``on_batch`` runs
+    inline with the live state and lazily fetched metrics.
 
     ``EADGAN_CHAIN_TRACE=<path>`` appends one JSONL record per window of
     host times in seconds: ``iter`` (the window's indices and masks made
@@ -228,6 +251,9 @@ def _run_epochs_chained(
 
     trace_path = os.environ.get("EADGAN_CHAIN_TRACE", "")
     trace = open(trace_path, "a") if trace_path else None
+    async_events = bool(chain_periods) and os.environ.get("EADGAN_SYNC_EVENTS", "") != "1"
+    worker = EventWorker() if async_events else None
+    event_stream = torch.cuda.Stream(device) if worker is not None and on_card else None
     pending = None  # the previous window: (start, k, epoch, host metrics, ready event)
 
     def drain():
@@ -265,6 +291,8 @@ def _run_epochs_chained(
                     window.append(to_device(np.stack(
                         [flip_rng.random(batch_size) < 0.5 for _ in range(k)]
                     )))
+                if worker is not None and on_card and chained.graph is None:
+                    worker.flush()  # the next window may capture
                 t0 = time.perf_counter()
                 state, stacked = chained(state, consts, *window)
                 state.step = ws + k
@@ -284,8 +312,19 @@ def _run_epochs_chained(
                     last = [w[-1] for w in window]
                     fetch = lambda last=last: prepare(consts, *last)[0]  # noqa: E731
                     batch = fetch() if is_event else LazyHostBatch(fetch)
-                    on_batch(ws + k - 1, state, LazyLastMetrics(chained.resolved_pack_keys, stacked),
-                             (batch,))
+                    if worker is not None and is_event:
+                        snapshot = snapshot_state(state)
+                        done = None
+                        if on_card:
+                            done = torch.cuda.Event()
+                            done.record()
+                        worker.submit(functools.partial(
+                            _run_event, on_batch, ws + k - 1, snapshot, chained.resolved_pack_keys,
+                            host, batch, done, event_stream,
+                        ))
+                    else:
+                        on_batch(ws + k - 1, state,
+                                 LazyLastMetrics(chained.resolved_pack_keys, stacked), (batch,))
                 t3 = time.perf_counter()
                 if trace is not None:
                     trace.write(json.dumps({
@@ -299,7 +338,28 @@ def _run_epochs_chained(
     finally:
         if trace is not None:
             trace.close()
+        if worker is not None:
+            worker.close()
     return state
+
+
+def _run_event(on_batch, step, snapshot, keys, host, batch, done, stream):
+    """An event on the worker: wait until the snapshot, the event batch and
+    the window's metrics are on hand (``done``; None on the CPU), call
+    ``on_batch`` with the worker's own CUDA ``stream`` current, so its
+    device work and copies run beside the next windows' replays instead
+    of queueing behind them, then wait for that work before the snapshot's
+    memory, allocated on the training stream, goes back to the allocator."""
+    on_card = done is not None
+    with torch.cuda.stream(stream) if on_card else contextlib.nullcontext():
+        if on_card:
+            done.synchronize()
+        row = host.detach().numpy()[-1]
+        on_batch(step, snapshot, {k: row[i] for i, k in enumerate(keys)}, (batch,))
+        if on_card:
+            finished = torch.cuda.Event()
+            finished.record()
+            finished.synchronize()
 
 
 def generator_apply(get_generator: Callable):

@@ -33,7 +33,20 @@ the same state (``tools/chain_check.py``): with cuDNN held to its
 deterministic algorithms the two per-step runs agree bit for bit, and
 the chained run must too, in every logged loss and event batch; the
 warp's launches are counted per replay.  A train state saved by a chained CLI run resumes under
-``--chain 1``, and one saved at ``--chain 1`` resumes chained.
+``--chain 1``, and one saved at ``--chain 1`` resumes chained.  The
+chained engine's events run on its worker against snapshots of the
+state, which later replays leave as they were: a callback that sleeps
+and then reads its state reads the per-step engine's values, bit for bit.
+
+The int8 generator's kernels: ``int8_convt`` bit-equal to
+``int8_convt_relu_plain`` (int32 sums exact on both sides, the same three
+float32 operations in the epilogue) at the three quantized layers'
+shapes, batch 128, the CLI's 100 and 3; ``quantize_int8`` bit-equal to
+its plain version from NCHW and NHWC inputs, with exact .5 ties, normal
+values and all zeros; the int8 forward on the card against the CPU's, 2e-2
+absolute on tanh outputs (each side quantizes its own float32 layer
+outputs, so an activation can round one step apart); and both wrappers'
+refusals.
 
 Tolerances: the warp in float32 2e-5 (nvcc contracts multiply-adds into
 FMA, so a coordinate can land an ulp apart and pick the neighbouring
@@ -60,6 +73,7 @@ from eadgan_tpu_torch.ops import (
     warp_affine_plain,
 )
 from eadgan_tpu_torch.ops.fused_conv import mismatch
+from eadgan_tpu_torch.tools.quant_bench import generator_inputs, int8_layer_inputs
 from eadgan_tpu_torch.transforms import RP, RPQMNXY, RPQXY, code_to_matrix
 from eadgan_tpu_torch.utils.profiler import sprite_warp_inputs
 
@@ -205,23 +219,13 @@ def test_folded_bf16_generator_matches_f32_eval_on_the_card(cuda):
     from eadgan_tpu_torch.models import CelebaGenerator
     from eadgan_tpu_torch.ops.quant import make_celeba_infer
 
-    gen = torch.Generator().manual_seed(0)
-    with torch.random.fork_rng(devices=[]):
-        torch.manual_seed(0)
-        model = CelebaGenerator()
-    sd = model.state_dict()
-    for k, v in sd.items():  # BatchNorm running statistics away from 0 and 1
-        if k.endswith("running_mean"):
-            v.copy_(0.1 * torch.randn(v.shape, generator=gen))
-        elif k.endswith("running_var"):
-            v.copy_(0.5 + torch.rand(v.shape, generator=gen))
+    sd, x = generator_inputs(128, cuda)
+    model = CelebaGenerator()
+    model.load_state_dict(sd)
     model = model.to(cuda).eval()
-    z, code = torch.randn(128, 200, generator=gen), torch.rand(128, 8, generator=gen) * 2 - 1
-    label = torch.nn.functional.one_hot(torch.randint(0, 10, (128,), generator=gen), 10).float()
-    x = [t.to(cuda) for t in (z, label, code)]
     with torch.no_grad():
         ref = model(*x)
-    got = make_celeba_infer(sd, compute_dtype=torch.bfloat16, device=cuda)(*x)
+    got = make_celeba_infer(sd, quant="none", compute_dtype=torch.bfloat16, device=cuda)(*x)
     assert got.dtype == torch.float32 and got.shape == (128, 3, 64, 64)
     assert (got - ref).abs().max().item() <= 2e-2
 
@@ -357,3 +361,151 @@ def test_train_state_resumes_across_chain_settings(cuda, tmp_path, monkeypatch, 
     records = [json.loads(line) for line in (tmp_path / "b.jsonl").read_text().splitlines()]
     assert [r["step"] for r in records] == list(range(1, 15))
     assert all(math.isfinite(r[k]) for r in records for k in rp.METRIC_KEYS)
+
+
+# the generator's int8 layers: (H, Cin, Cout) of the input of layers 1-3
+INT8_LAYERS = [(4, 1024, 512), (8, 512, 256), (16, 256, 128)]
+
+
+@pytest.mark.parametrize("batch", [128, 100, 3])
+@pytest.mark.parametrize("h,cin,cout", INT8_LAYERS)
+def test_int8_convt_kernel_equals_plain(cuda, h, cin, cout, batch):
+    """Bit-equal, float epilogue included: the int32 sums are exact on
+    both sides and the epilogue rounds the same three operations."""
+    from eadgan_tpu_torch.ops import quant_cuda
+    from eadgan_tpu_torch.ops.quant import int8_convt_relu, int8_convt_relu_plain
+
+    xq, a_scale, layer, _ = int8_layer_inputs(batch, h, cin, cout)
+    ref = int8_convt_relu_plain(xq, a_scale, layer.wq, layer.w_scale, layer.bias)
+    card = type(layer)(*(t.to(cuda) for t in (layer.wq, layer.wp, layer.w_scale, layer.bias)))
+    before = quant_cuda.launch_count["int8_convt"]
+    got = int8_convt_relu(xq.to(cuda), a_scale.to(cuda), card)
+    torch.cuda.synchronize()
+    assert quant_cuda.launch_count["int8_convt"] == before + 1
+    assert got.shape == (batch, 2 * h, 2 * h, cout) and got.dtype == torch.float32
+    assert torch.equal(got.cpu(), ref)
+    assert (ref > 0).float().mean() > 0.2  # the ReLU left real values to compare
+
+
+def _tie_activation(shape, seed=0):
+    """float32 values whose quotient by the scale is exact: the scale is
+    2^-3 (max |x| = 127 / 8), and a third of the values sit on .5 ties."""
+    gen = torch.Generator().manual_seed(seed)
+    k = torch.randint(-126, 127, shape, generator=gen).float()
+    tie = torch.rand(shape, generator=gen) < 1 / 3
+    x = (k + tie.float() * torch.where(k < 0, -0.5, 0.5)) / 8
+    x.view(-1)[7] = 127 / 8
+    return x
+
+
+@pytest.mark.parametrize("nhwc", [False, True], ids=["nchw", "nhwc"])
+@pytest.mark.parametrize("shape", [(128, 1024, 4, 4), (100, 512, 8, 8), (3, 256, 16, 16),
+                                   (2, 12, 3, 5)])
+def test_quantize_int8_kernel_equals_plain(cuda, shape, nhwc):
+    from eadgan_tpu_torch.ops import quant_cuda
+    from eadgan_tpu_torch.ops.quant import quantize_activation, quantize_activation_plain
+
+    gen = torch.Generator().manual_seed(1)
+    for x in (_tie_activation(shape), torch.randn(shape, generator=gen) * 3, torch.zeros(shape)):
+        if nhwc:
+            x = x.permute(0, 2, 3, 1).contiguous()
+        ref_q, ref_scale = quantize_activation_plain(x, nhwc)
+        before = quant_cuda.launch_count["quantize_int8"]
+        q, scale = quantize_activation(x.to(cuda), nhwc)
+        torch.cuda.synchronize()
+        assert quant_cuda.launch_count["quantize_int8"] == before + 2  # abs-max, then quantize
+        assert q.dtype == torch.int8 and q.shape == ref_q.shape and scale.shape == ()
+        assert torch.equal(q.cpu(), ref_q) and torch.equal(scale.cpu(), ref_scale)
+
+
+def test_int8_generator_on_the_card_matches_the_cpu(cuda):
+    """The int8 forward on the card against the CPU's plain one, float32
+    ends on both (TF32 off): layer 0's sums in other orders can move an
+    activation across a rounding boundary of its quantization, one step
+    of 1/127 of the tensor's range, so 2e-2 absolute on tanh outputs, the
+    bar of the bf16 comparisons."""
+    from eadgan_tpu_torch.ops import quant_cuda
+    from eadgan_tpu_torch.ops.quant import make_celeba_infer
+
+    sd, x = generator_inputs(8, "cpu")
+    ref = make_celeba_infer(sd, quant="int8", compute_dtype=torch.float32)(*x)
+    before = dict(quant_cuda.launch_count)
+    got = make_celeba_infer(sd, quant="int8", compute_dtype=torch.float32, device=cuda)(
+        *(t.to(cuda) for t in x))
+    torch.cuda.synchronize()
+    assert quant_cuda.launch_count["int8_convt"] == before["int8_convt"] + 3
+    assert quant_cuda.launch_count["quantize_int8"] == before["quantize_int8"] + 6
+    assert got.dtype == torch.float32 and got.shape == (8, 3, 64, 64)
+    assert (got.cpu() - ref).abs().max().item() <= 2e-2
+
+
+def test_int8_kernels_reject(cuda):
+    from eadgan_tpu_torch.ops import quant_cuda
+
+    x = torch.rand(2, 8, 4, 4, device=cuda)
+    with pytest.raises(ValueError, match="CUDA"):
+        quant_cuda.quantize_int8_cuda(x.cpu(), False)
+    with pytest.raises(TypeError, match="float32"):
+        quant_cuda.quantize_int8_cuda(x.double(), False)
+    with pytest.raises(ValueError, match="contiguous"):
+        quant_cuda.quantize_int8_cuda(x.permute(0, 2, 3, 1), True)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        quant_cuda.quantize_int8_cuda(x[:, :6].contiguous(), False)
+
+    xq, a_scale, layer, _ = int8_layer_inputs(2, 4, 64, 16)
+    args = [t.to(cuda) for t in (xq, layer.wp, a_scale, layer.w_scale, layer.bias)]
+    quant_cuda.int8_convt_cuda(*args)  # the arguments as they are pass
+    bad = list(args)
+    bad[0] = args[0].cpu()
+    with pytest.raises(ValueError, match="CUDA"):
+        quant_cuda.int8_convt_cuda(*bad)
+    bad[0] = args[0].float()
+    with pytest.raises(TypeError, match="int8"):
+        quant_cuda.int8_convt_cuda(*bad)
+    bad[0] = args[0].transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        quant_cuda.int8_convt_cuda(*bad)
+    bad = list(args)
+    bad[1] = args[1][:, :, :, :32].contiguous()
+    with pytest.raises(ValueError, match="wp must be"):
+        quant_cuda.int8_convt_cuda(*bad)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        quant_cuda.int8_convt_cuda(args[0][..., :32].contiguous(), bad[1], *args[2:])
+
+
+def test_event_snapshots_survive_replays_on_the_card(cuda, monkeypatch):
+    """The chained engine's events on its worker: each callback sleeps
+    while the engine replays the next windows, which write the live state
+    in place, then reads the state it was handed.  Under deterministic
+    cuDNN it reads, bit for bit, the parameters and batch that the
+    per-step engine's callback reads at that step, and the inline chained
+    callback's (``EADGAN_SYNC_EVENTS=1``)."""
+    import time
+
+    from eadgan_tpu_torch.train.chain import snapshot_state
+    from eadgan_tpu_torch.train.engine import run_epochs
+    from eadgan_tpu_torch.utils.profiler import build_step
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    state0, step, data, prep = build_step("pxy", 16)
+    runs = {}
+    for name, chain, sync in (("per_step", 1, "0"), ("inline", 4, "1"), ("worker", 4, "0")):
+        monkeypatch.setenv("EADGAN_SYNC_EVENTS", sync)
+        reads = []
+
+        def on_batch(i, st, metrics, batch, reads=reads):
+            if i % 4 == 0:
+                time.sleep(0.2)
+                params = torch.cat([p.detach().flatten() for p in st.model.parameters()])
+                reads.append((i, params.cpu(), batch[0].cpu()))
+
+        final = run_epochs(n_epochs=1, data=data, batch_size=16, state=snapshot_state(state0),
+                           step_fn=step, on_batch=on_batch, device="cuda", max_steps=12,
+                           chain=chain, chain_periods=(4,), **prep)
+        torch.cuda.synchronize()
+        assert final.step == 12
+        runs[name] = reads
+    assert [r[0] for r in runs["worker"]] == [0, 4, 8]
+    for other in ("per_step", "inline"):
+        for (i, pa, ba), (j, pb, bb) in zip(runs[other], runs["worker"]):
+            assert i == j and torch.equal(pa, pb) and torch.equal(ba, bb), (other, i)

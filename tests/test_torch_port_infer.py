@@ -1,6 +1,7 @@
 """Port generator inference vs the JAX package: the BatchNorm fold, the
 eval-mode and folded bf16 CelebA forwards, the inference grids and the
-``gen_imgs`` CLI.
+``gen_imgs`` CLI (``--quant none|bf16|int8``; the int8 forward itself is
+held to the JAX package in ``tests/test_torch_port_quant.py``).
 
 The CelebA generator's flax variables (numpy-seeded, BatchNorm scales,
 biases and running statistics perturbed away from their defaults) go
@@ -32,6 +33,7 @@ from eadgan_tpu.sample import figures as jax_figures
 from eadgan_tpu_torch.cli import celeba, gen_imgs
 from eadgan_tpu_torch.interop.from_jax import celeba_generator_from_flax, conv_transpose_kernel
 from eadgan_tpu_torch.models import CelebaGenerator
+from eadgan_tpu_torch.ops import quant
 from eadgan_tpu_torch.ops.quant import fold_celeba_generator_bn, make_celeba_infer
 from eadgan_tpu_torch.sample import figures
 
@@ -85,7 +87,7 @@ def test_folded_f32_equals_eval_forward(g_variables):
     x = tuple(map(torch.from_numpy, _inputs(1)))
     with torch.no_grad():
         ref = model.eval()(*x)
-    got = make_celeba_infer(sd, compute_dtype=torch.float32)(*x)
+    got = make_celeba_infer(sd, quant="none", compute_dtype=torch.float32)(*x)
     assert got.dtype == torch.float32 and got.shape == (B, 3, 64, 64)
     np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-4, atol=1e-5)
 
@@ -99,8 +101,6 @@ def test_folded_bf16_matches_jax(g_variables):
     assert got.dtype == torch.float32
     got = got.permute(0, 2, 3, 1).numpy()
     np.testing.assert_allclose(got, ref, rtol=0, atol=2e-2)
-    with pytest.raises(ValueError, match="not ported"):
-        make_celeba_infer(celeba_generator_from_flax(g_variables), quant="int8")
 
 
 def _apply(z, label, code):
@@ -143,10 +143,24 @@ def test_gen_imgs_reads_a_celeba_run(tmp_path, monkeypatch):
     ])
     ckpt = tmp_path / "checkpoint_0.tar"
     assert ckpt.is_file()
-    for quant in ("none", "bf16"):
-        out = tmp_path / quant
-        gen_imgs.main(["--checkpoint", str(ckpt), "--out_dir", str(out), "--quant", quant])
+    launches = []
+    monkeypatch.setattr(quant, "int8_convt_relu_plain",
+                        _counting(quant.int8_convt_relu_plain, launches, "int8_convt"))
+    monkeypatch.setattr(quant, "quantize_activation_plain",
+                        _counting(quant.quantize_activation_plain, launches, "quantize_int8"))
+    for mode in ("none", "bf16", "int8"):
+        out = tmp_path / mode
+        gen_imgs.main(["--checkpoint", str(ckpt), "--out_dir", str(out), "--quant", mode])
         for k in range(1, 9):
-            assert (out / f"varying_c{k}" / "0.png").is_file(), (quant, k)
-    with pytest.raises(SystemExit, match="item 9"):
-        gen_imgs.main(["--checkpoint", str(ckpt), "--quant", "int8"])
+            assert (out / f"varying_c{k}" / "0.png").is_file(), (mode, k)
+        assert not (out / "varying_c9").exists()
+    # 8 forwards of batch 100, each through the three int8 layers
+    assert launches.count("int8_convt") == launches.count("quantize_int8") == 24
+
+
+def _counting(fn, calls, name):
+    def wrapped(*args, **kwargs):
+        calls.append(name)
+        return fn(*args, **kwargs)
+
+    return wrapped
