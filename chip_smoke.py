@@ -27,8 +27,11 @@ a non-zero exit on the first that fails:
    probe's small bias and with one as large as the conv output (one JSON
    line per case); the int8 generator's two kernels, ``int8_convt`` and
    ``quantize_int8``, at its three quantized layers' shapes at the CLI's
-   batch of 100, bit-equal to their plain versions (the quantization
-   from layer 1's NCHW input and the others' NHWC, with exact .5 ties);
+   batch of 100, bit-equal to their plain versions: ``int8_convt``
+   writing float32 and bf16, its abs-max word equal to the plain
+   output's; the quantization from layer 1's NCHW input and the others'
+   NHWC, with exact .5 ties, -0.0 and all zeros, with its own abs-max and
+   with the abs-max given;
 3. train steps on the CPU and on the card from the same weights and
    draws, three steps at batch 4: CelebA at the low-lr config in f32 and
    bf16; the pxy step gray and colored in f32; the rp step gray and
@@ -65,8 +68,10 @@ a non-zero exit on the first that fails:
    launched once a Representer batch, no scikit-learn; ``cli.gen_imgs
    --quant none``, ``--quant bf16`` and ``--quant int8`` on the CelebA
    run's ``checkpoint_0.tar``, the int8 kernels' launches held exactly
-   (8 forwards of 3 int8 layers: 24 ``int8_convt`` and 48
-   ``quantize_int8``, two launches a quantization); a CelebA save window
+   (8 forwards of 3 int8 layers: 24 ``int8_convt`` and 32
+   ``quantize_int8``, two launches for layer 1's input, whose abs-max
+   takes a pass of its own, and one for layers 2 and 3's, whose abs-max
+   ``int8_convt`` hands on); a CelebA save window
    (grids, ``checkpoint_%d.tar``, the train state) timed inline
    (``EADGAN_SYNC_EVENTS=1``) against the chained engine's event worker; the MNIST pipeline at batch 128 on the
    synthetic digits, ``cli.approximate_rpqmnxy`` (a short run), then
@@ -82,9 +87,11 @@ a non-zero exit on the first that fails:
    gathering its batch on the card from the resident dataset as the
    CLIs' graph does, after the eager step and the capture); CelebA
    generator inference at batch 128, the float32 eval forward, the
-   folded bf16 one and the int8 one with its PSNR, beside their bounds
+   folded bf16 one and the int8 one with its PSNR, beside their bounds,
+   and the int8 one's unchained steps, both traced by kernel
    (``tools/quant_bench.py``); the int8 kernels at the three layers at
-   batch 128 beside their bounds, plain versions and yardsticks
+   batch 128, as the int8 forward runs them, beside their bounds, plain
+   versions and yardsticks
    (``torch._int_mm`` on the phases' im2col matrices and cuDNN's bf16
    transposed conv; ``torch.amax`` and the quantize expression); the warp beside its bound, its
    plain version and the library call that computes the same function at
@@ -257,33 +264,51 @@ def phase_int8_vs_plain(torch, errs):
     """The int8 generator's two kernels against their plain versions (run
     on the CPU: exact integer sums in float64) at the three layers'
     shapes at the CLI's batch of 100 (the card tests add 128 and 3):
+    ``int8_convt`` in float32 and bf16 with its abs-max word, and
+    ``quantize_int8`` with its own abs-max and a given one, on the layer's
+    activation (with exact .5 ties), the same with -0.0 in it, and zeros;
     bit-equal, or the script fails."""
     from eadgan_tpu_torch.ops.quant import (int8_convt_relu, int8_convt_relu_plain,
-                                            quantize_activation, quantize_activation_plain)
+                                            output_amax_plain, quantize_activation,
+                                            quantize_activation_plain)
     from eadgan_tpu_torch.tools.quant_bench import int8_layer_inputs
 
     errs["int8_convt"] = errs["quantize_int8"] = 0.0
     batch = 100
     for h, cin, cout in INT8_LAYERS:
         xq, a_scale, layer, act = int8_layer_inputs(batch, h, cin, cout)
-        ref = int8_convt_relu_plain(xq, a_scale, layer.wq, layer.w_scale, layer.bias)
         card = type(layer)(*(t.cuda() for t in (layer.wq, layer.wp, layer.w_scale, layer.bias)))
-        got = int8_convt_relu(xq.cuda(), a_scale.cuda(), card).cpu()
-        check(got.shape == ref.shape and got.dtype == torch.float32, "int8_convt: dtype/shape")
-        err = (got - ref).abs().max().item()
-        emit({"case": f"layer_h{h}", "kernel": "int8_convt", "shape": list(xq.shape),
-              "cout": cout, "max_abs_err": err, "bit_equal": torch.equal(got, ref), "tol": 0.0})
-        check(torch.equal(got, ref), f"int8_convt vs plain at {tuple(xq.shape)}->{cout}: {err}")
+        for out_dtype in (torch.float32, torch.bfloat16):
+            ref = int8_convt_relu_plain(xq, a_scale, layer.wq, layer.w_scale, layer.bias, out_dtype)
+            got, amax = int8_convt_relu(xq.cuda(), a_scale.cuda(), card, out_dtype, with_amax=True)
+            got, amax = got.cpu(), amax.cpu()
+            check(got.shape == ref.shape and got.dtype == out_dtype, "int8_convt: dtype/shape")
+            err = (got.float() - ref.float()).abs().max().item()
+            amax_equal = torch.equal(amax, output_amax_plain(ref))
+            equal = torch.equal(got, ref) and amax_equal
+            emit({"case": f"layer_h{h}", "kernel": "int8_convt", "shape": list(xq.shape),
+                  "cout": cout, "out_dtype": str(out_dtype), "max_abs_err": err,
+                  "amax": amax.item(), "amax_equal": amax_equal, "bit_equal": equal, "tol": 0.0})
+            check(equal, f"int8_convt vs plain at {tuple(xq.shape)}->{cout} {out_dtype}: {err}, "
+                         f"abs-max equal {amax_equal}")
         nhwc = h != 4
-        ref_q, ref_scale = quantize_activation_plain(act, nhwc)
-        q, scale = quantize_activation(act.cuda(), nhwc)
-        q, scale = q.cpu(), scale.cpu()
-        equal = torch.equal(q, ref_q) and torch.equal(scale, ref_scale)
-        qerr = (q.int() - ref_q.int()).abs().max().item()
-        emit({"case": f"layer_h{h}_input", "kernel": "quantize_int8", "shape": list(act.shape),
-              "layout": "nhwc" if nhwc else "nchw", "max_abs_err": qerr,
-              "scale": scale.item(), "bit_equal": equal, "tol": 0.0})
-        check(equal, f"quantize_int8 vs plain at {tuple(act.shape)}: {qerr}")
+        with_neg_zero = act.clone()
+        with_neg_zero.view(-1)[1::5] = -0.0
+        for kind, x in (("layer", act), ("negative_zero", with_neg_zero),
+                        ("zeros", torch.zeros_like(act))):
+            ref_q, ref_scale = quantize_activation_plain(x, nhwc)
+            for given in (False, True):
+                amax = output_amax_plain(x).cuda() if given else None
+                q, scale = quantize_activation(x.cuda(), nhwc, amax)
+                q, scale = q.cpu(), scale.cpu()
+                equal = torch.equal(q, ref_q) and torch.equal(scale, ref_scale)
+                qerr = (q.int() - ref_q.int()).abs().max().item()
+                emit({"case": f"layer_h{h}_input_{kind}", "kernel": "quantize_int8",
+                      "shape": list(x.shape), "layout": "nhwc" if nhwc else "nchw",
+                      "amax": "given" if given else "own", "max_abs_err": qerr,
+                      "scale": scale.item(), "bit_equal": equal, "tol": 0.0})
+                check(equal, f"quantize_int8 vs plain at {tuple(x.shape)} {kind}, "
+                             f"{'given' if given else 'own'} abs-max: {qerr}")
     torch.cuda.synchronize()
 
 
@@ -770,8 +795,9 @@ def phase_trainer(torch):
                         "--quant", quant])
             infer[quant] = time.perf_counter() - t0
             int8_launches = dict(quant_cuda.launch_count)
-            # 8 forwards of batch 100: 3 int8 layers each, 1 + 2 launches a layer
-            want = {"int8_convt": 24, "quantize_int8": 48} if quant == "int8" else {
+            # 8 forwards of batch 100: 3 int8 layers each, 3 int8_convt and
+            # 2 + 1 + 1 quantize_int8 launches a forward
+            want = {"int8_convt": 24, "quantize_int8": 32} if quant == "int8" else {
                 "int8_convt": 0, "quantize_int8": 0}
             check(int8_launches == want, f"gen_imgs --quant {quant}: int8 launches {int8_launches}")
             for k in range(1, 9):
@@ -1229,22 +1255,33 @@ def time_inference(torch, cycles):
     record = measure(128, cycles)
     emit(record)
     check(record["int8"]["psnr_db_vs_f32_eval"] > INT8_PSNR_DB, f"int8 PSNR {record['int8']}")
+    check(record["int8"]["equals_unchained"], "the chained int8 forward differs from its steps")
+    check(all(p["kernels_in_trace"] for p in record["profile"].values()),
+          "the int8 forwards' profiles show no kernel")
     return record
 
 
 def time_int8_kernels(torch, cycles, errs, launches):
     """The two int8 kernels at the generator's three layers, batch 128, by
-    CUDA events, each beside its plain version (on the card), its bound
-    and its yardsticks: for ``int8_convt``, ``torch._int_mm`` on the
-    four phases' im2col matrices (built beforehand) and cuDNN's bf16
-    ``F.conv_transpose2d`` at the same shape; for ``quantize_int8``,
-    ``torch.amax(x.abs())`` and the quantize expression.  The entries'
-    times are sums over the three layers (one forward's worth), with the
-    layers alongside."""
+    CUDA events, as the int8 forward runs them: ``int8_convt`` writing
+    float32 and its abs-max at layers 1 and 2 and bf16 at layer 3,
+    ``quantize_int8`` with its own abs-max at layer 1's input and the
+    abs-max given at layers 2 and 3's.  Each beside its plain version (on
+    the card), its bound and its yardsticks: for ``int8_convt``,
+    ``torch._int_mm`` on the four phases' im2col matrices (built
+    beforehand) and cuDNN's bf16 ``F.conv_transpose2d`` at the same shape;
+    for ``quantize_int8``, ``torch.amax(x.abs())`` (where the kernel takes
+    its own) and the quantize expression.  ``int8_convt`` is also timed
+    writing float32 at every layer and ``quantize_int8`` with its own
+    abs-max at every layer (``ms_f32_out``, ``ms_own_amax``: the functions
+    the forward ran before it chained them).  The entries' times are sums
+    over the three layers (one forward's worth), with the layers
+    alongside."""
     import torch.nn.functional as F
 
     from eadgan_tpu_torch.ops.quant import (int8_convt_relu, int8_convt_relu_plain,
-                                            quantize_activation, quantize_activation_plain)
+                                            output_amax_plain, quantize_activation,
+                                            quantize_activation_plain)
     from eadgan_tpu_torch.tools.quant_bench import int8_layer_inputs
     from eadgan_tpu_torch.utils.timing import device_ms, host_enqueue_ms
 
@@ -1254,6 +1291,8 @@ def time_int8_kernels(torch, cycles, errs, launches):
         xq, a_scale, layer, act = int8_layer_inputs(batch, h, cin, cout)
         xq, a_scale, act = xq.cuda(), a_scale.cuda(), act.cuda()
         layer = type(layer)(*(t.cuda() for t in (layer.wq, layer.wp, layer.w_scale, layer.bias)))
+        last = h == INT8_LAYERS[-1][0]  # the last int8 layer writes bf16 for layer 4
+        out_dtype, with_amax = (torch.bfloat16, False) if last else (torch.float32, True)
         # im2col of each phase: the four taps' rows, K = 4 * Cin, as the kernel reads them
         padded = F.pad(xq, (0, 0, 1, 1, 1, 1))
         cols = [torch.cat([padded[:, 1 + py - ty:1 + py - ty + h, 1 + px - tx:1 + px - tx + h]
@@ -1263,44 +1302,54 @@ def time_int8_kernels(torch, cycles, errs, launches):
         x_bf16 = torch.randn(batch, cin, h, h, device="cuda").to(torch.bfloat16)
         w_bf16 = layer.wq.to(torch.bfloat16)
         macs = batch * (2 * h) ** 2 * cout * cin * 4
-        nbytes = xq.numel() + layer.wp.numel() + batch * (2 * h) ** 2 * cout * 4 + 8 * cout
+        out_bytes = batch * (2 * h) ** 2 * cout * (2 if last else 4)
+        nbytes = xq.numel() + layer.wp.numel() + out_bytes + 8 * cout
         bound_ms, bound_by = bound(nbytes, 2 * macs, INT8_TENSOR_OPS_PER_S)
+
+        def kernel():
+            return int8_convt_relu(xq, a_scale, layer, out_dtype, with_amax)
+
+        def plain():
+            out = int8_convt_relu_plain(xq, a_scale, layer.wq, layer.w_scale, layer.bias, out_dtype)
+            return out, output_amax_plain(out)
+
         convt_layers.append({
-            "shape": [batch, h, h, cin, cout],
-            "ms": device_ms(lambda: int8_convt_relu(xq, a_scale, layer), 50, cycles),
-            "plain_ms": device_ms(lambda: int8_convt_relu_plain(xq, a_scale, layer.wq, layer.w_scale,
-                                                                layer.bias), 3, cycles),
+            "shape": [batch, h, h, cin, cout], "out_dtype": str(out_dtype), "amax_out": with_amax,
+            "ms": device_ms(kernel, 50, cycles),
+            "ms_f32_out": device_ms(lambda: int8_convt_relu(xq, a_scale, layer), 50, cycles),
+            "plain_ms": device_ms(plain, 3, cycles),
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": device_ms(lambda: [torch._int_mm(a, b) for a, b in zip(cols, mats)], 50,
                                     cycles),
             "library_bf16_ms": device_ms(lambda: F.conv_transpose2d(x_bf16, w_bf16, None, 2, 1), 50,
                                          cycles),
-            "wrapper_enqueue_ms_host_clock": host_enqueue_ms(
-                lambda: int8_convt_relu(xq, a_scale, layer), 200),
+            "wrapper_enqueue_ms_host_clock": host_enqueue_ms(kernel, 200),
         })
         convt_layers[-1]["tops_per_s"] = 2 * macs / convt_layers[-1]["ms"] / 1e9
         nhwc = h != 4
+        amax = output_amax_plain(act) if nhwc else None  # layer 1's input is cuDNN's: no abs-max
         n = act.numel()
 
-        def library(act=act):
-            scale = torch.clamp_min(torch.amax(act.abs()), 1e-12) / 127.0
+        def library(act=act, amax=amax):
+            scale = torch.clamp_min(torch.amax(act.abs()) if amax is None else amax, 1e-12) / 127.0
             return torch.clamp(torch.round(act / scale), -127, 127).to(torch.int8)
 
         quant_layers.append({
             "shape": list(act.shape), "layout": "nhwc" if nhwc else "nchw",
-            "ms": device_ms(lambda: quantize_activation(act, nhwc), 50, cycles),
-            "plain_ms": device_ms(lambda: quantize_activation_plain(act, nhwc), 20, cycles),
+            "amax": "own" if amax is None else "given",
+            "ms": device_ms(lambda: quantize_activation(act, nhwc, amax), 50, cycles),
+            "ms_own_amax": device_ms(lambda: quantize_activation(act, nhwc), 50, cycles),
+            "plain_ms": device_ms(lambda: quantize_activation_plain(act, nhwc, amax), 20, cycles),
             "bound_ms": bound(5 * n, 0, 1)[0], "bound_by": "bytes",
-            "bound_ms_two_reads": bound(9 * n, 0, 1)[0],
             "library_ms": device_ms(library, 50, cycles),
             "wrapper_enqueue_ms_host_clock": host_enqueue_ms(
-                lambda: quantize_activation(act, nhwc), 200),
+                lambda: quantize_activation(act, nhwc, amax), 200),
         })
         del cols, mats, padded
     entries = []
     for name, source, line, layers, extra in (
-            ("int8_convt", "int8_convt.cu", 108, convt_layers, ("library_bf16_ms",)),
-            ("quantize_int8", "quantize_int8.cu", 124, quant_layers, ("bound_ms_two_reads",))):
+            ("int8_convt", "int8_convt.cu", 108, convt_layers, ("ms_f32_out", "library_bf16_ms")),
+            ("quantize_int8", "quantize_int8.cu", 124, quant_layers, ("ms_own_amax",))):
         total = {k: sum(layer[k] for layer in layers)
                  for k in ("ms", "plain_ms", "bound_ms", "library_ms", *extra)}
         by_ops = sum(layer["bound_ms"] for layer in layers if layer["bound_by"] == "operations")
@@ -1310,7 +1359,8 @@ def time_int8_kernels(torch, cycles, errs, launches):
             "launches": launches[name], "max_abs_err": errs[name], **total,
             # the larger share of the summed bound
             "bound_by": "operations" if 2 * by_ops >= total["bound_ms"] else "bytes",
-            "timed_at": "batch 128, the three int8 layers summed", "layers": layers,
+            "timed_at": "batch 128, the three int8 layers summed, as the int8 forward runs them",
+            "layers": layers,
         })
     emit({"int8_kernel_timing": entries})
     return entries

@@ -48,9 +48,10 @@ gemm_check_kernel(const __grid_constant__ CUtensorMap map_a,
   for (int kt = 0; kt < k / kBK; ++kt) {
     if (threadIdx.x == 0) {
       mbar_expect_tx(&bar, kABytes + kBBytes);
-      tma_load_3d(smem_a, &map_a, &bar, kt * kBK, blockIdx.x * 128, 0);
+      tma_load_3d(smem_a, &map_a, &bar, kt * kBK, blockIdx.x * 128, 0, kEvictLast);
       for (int i = 0; i < BN / 64; ++i)
-        tma_load_3d(smem_b + i * kBBoxBytes, &map_b, &bar, blockIdx.y * BN + 64 * i, kt * kBK, 0);
+        tma_load_3d(smem_b + i * kBBoxBytes, &map_b, &bar, blockIdx.y * BN + 64 * i, kt * kBK, 0,
+                    kEvictLast);
     }
     mbar_wait(&bar, kt & 1);
     fence_acc(acc);
@@ -124,8 +125,8 @@ extern "C" int eadgan_check_gemm(const void* a, const void* b, void* c, int m, i
   const cuuint64_t b_strides[2] = {n * e, cuuint64_t(k) * n * e};
   const cuuint32_t b_box[3] = {64, kBK, 1};
   const cuuint32_t step[3] = {1, 1, 1};
-  if (enc == nullptr || !encode(enc, &ma, a, 3, a_dims, a_strides, a_box, step) ||
-      !encode(enc, &mb, b, 3, b_dims, b_strides, b_box, step))
+  if (enc == nullptr || !encode_bf16(enc, &ma, a, 3, a_dims, a_strides, a_box, step) ||
+      !encode_bf16(enc, &mb, b, 3, b_dims, b_strides, b_box, step))
     return static_cast<int>(cudaErrorInvalidValue);
   float* out = static_cast<float*>(c);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

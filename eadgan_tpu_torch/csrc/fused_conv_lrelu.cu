@@ -53,11 +53,9 @@
 // and 16-byte aligned pointers; the wrapper (ops/fused_conv_cuda.py)
 // checks both.
 
-#include <cuda.h>  // CUtensorMap and its enums only: nothing of libcuda is linked
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
 
-#include <cstdint>
+#include "hopper.cuh"
 
 namespace {
 
@@ -88,138 +86,12 @@ struct Plan {
   float slope;
 };
 
-// --- PTX wrappers ------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count));
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-
-// spins until the barrier's phase differs from `parity`
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// L2 eviction priorities a TMA copy can carry (the encoded cache policies
-// that CUTLASS names EVICT_LAST and EVICT_FIRST)
-constexpr uint64_t kEvictLast = 0x14F0000000000000ull;
-constexpr uint64_t kEvictFirst = 0x12F0000000000000ull;
-
-// w is read by every tile: it asks L2 to keep it (kEvictLast)
-__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                            int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint"
-      " [%0], [%1, {%3, %4, %5}], [%2], %6;\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
-      "l"(kEvictLast)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                            int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(c3)
-      : "memory");
-}
-
-// out is written once and not read again: it asks L2 to evict it first,
-// before the x and w lines that later tiles read (x, w and out together
-// are a little more than the 50 MB of L2 at the CelebA shape)
-__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void* src, int c0,
-                                             int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group.L2::cache_hint"
-      " [%0, {%2, %3, %4, %5}], [%1], %6;\n" ::"l"(reinterpret_cast<uint64_t>(map)),
-      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "l"(kEvictFirst)
-      : "memory");
-}
-
-__device__ __forceinline__ void bulk_commit() {
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-
-// at most kPending stores still reading shared memory
-template <int kPending>
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(kPending) : "memory");
-}
-
-__device__ __forceinline__ void bulk_wait_all() {
-  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-}
-
-// generic-proxy writes to shared memory made visible to TMA
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void named_barrier(int id) {
-  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
-}
-
-template <int kRegs>
-__device__ __forceinline__ void setmaxnreg_inc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kRegs));
-}
-
-template <int kRegs>
-__device__ __forceinline__ void setmaxnreg_dec() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kRegs));
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int kPending>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending) : "memory");
-}
-
 // keeps the compiler from moving accumulator reads or writes across an
 // asynchronous wgmma
 template <int R>
 __device__ __forceinline__ void fence_acc(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
-// and stride byte offsets, all in 16-byte units
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
 }
 
 // A, K-major: 64 pixel rows of 128 bytes, 8-row groups 1024 bytes apart;
@@ -383,7 +255,7 @@ fused_conv_lrelu_kernel(const __grid_constant__ CUtensorMap map_x,
 #pragma unroll
           for (int i = 0; i < BN / 64; ++i)
             tma_load_3d(smem_b + stage * kBBytes + i * kBBoxBytes, &map_w, &full[stage],
-                        t.n0 + 64 * i, c0, tap);
+                        t.n0 + 64 * i, c0, tap, kEvictLast);  // w is read by every tile
         }
       }
     }
@@ -472,39 +344,12 @@ fused_conv_lrelu_kernel(const __grid_constant__ CUtensorMap map_x,
 
 // --- host ----------------------------------------------------------------------
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up through the CUDA runtime (no -lcuda)
-EncodeTiled encoder() {
-  static const EncodeTiled fn = [] {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(ptr)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// a bf16 tensor map with the 128-byte swizzle; dims innermost first,
-// strides in bytes for dims 1.. (dim 0 is contiguous)
-bool encode(EncodeTiled enc, CUtensorMap* map, const void* ptr, cuuint32_t rank,
-            const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box,
-            const cuuint32_t* element_strides) {
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), dims, strides,
-             box, element_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;  // out of bounds reads 0
+// a bf16 tensor map with the 128-byte swizzle (hopper.cuh::encode)
+bool encode_bf16(EncodeTiled enc, CUtensorMap* map, const void* ptr, cuuint32_t rank,
+                 const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box,
+                 const cuuint32_t* element_strides) {
+  return encode(enc, map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, ptr, rank, dims, strides, box,
+                element_strides);
 }
 
 template <int BN>
@@ -531,7 +376,7 @@ bool encode_x(EncodeTiled enc, CUtensorMap* map, const void* x, int batch, int h
   const cuuint64_t strides[3] = {cin * e, h * cin * e, cuuint64_t(h) * h * cin * e};
   const cuuint32_t box[4] = {kBK, 2 * kTileW, 2 * kTileH, 1};
   const cuuint32_t step[4] = {1, 2, 2, 1};
-  return encode(enc, map, x, 4, dims, strides, box, step);
+  return encode_bf16(enc, map, x, 4, dims, strides, box, step);
 }
 
 // w (4, 4, cin, cout) seen as (16 taps, cin, cout): 64 Cout x 64 channels of one tap
@@ -541,7 +386,7 @@ bool encode_w(EncodeTiled enc, CUtensorMap* map, const void* w, int cin, int cou
   const cuuint64_t strides[2] = {cout * e, cuuint64_t(cin) * cout * e};
   const cuuint32_t box[3] = {64, kBK, 1};
   const cuuint32_t step[3] = {1, 1, 1};
-  return encode(enc, map, w, 3, dims, strides, box, step);
+  return encode_bf16(enc, map, w, 3, dims, strides, box, step);
 }
 
 // out (batch, ho, ho, cout): one warpgroup's pixels (4 rows x 16 columns) x 64 Cout
@@ -551,7 +396,7 @@ bool encode_out(EncodeTiled enc, CUtensorMap* map, void* out, int batch, int ho,
   const cuuint64_t strides[3] = {cout * e, ho * cout * e, cuuint64_t(ho) * ho * cout * e};
   const cuuint32_t box[4] = {64, kTileW, kTileH / kConsumers, 1};
   const cuuint32_t step[4] = {1, 1, 1, 1};
-  return encode(enc, map, out, 4, dims, strides, box, step);
+  return encode_bf16(enc, map, out, 4, dims, strides, box, step);
 }
 
 }  // namespace

@@ -4,8 +4,8 @@ At first use, one ``nvcc`` per ``eadgan_tpu_torch/csrc/*.cu``, all started
 together, compiles each source for Hopper (``sm_90a``), and one more links
 the objects into one shared library with a plain C interface, under
 ``eadgan_tpu_torch/_build/``, which ``ctypes`` then loads.  The
-library's name carries a hash of the sources and flags, so an edited
-source builds anew; a finished build is reused by later processes.
+library's name carries a hash of the sources, the headers they share
+(``csrc/*.cuh``) and the flags, so an edited source builds anew; a finished build is reused by later processes.
 Nothing is built when a module is imported: machines without ``nvcc``
 (the CPU test hosts) import every module freely.
 """
@@ -42,7 +42,8 @@ _SIGNATURES = {
     "eadgan_fused_conv_lrelu_bf16": (_ptr, _ptr, _ptr, _ptr, _int, _int, _int, _int, _float, _ptr),
     "eadgan_int8_amax": (_ptr, _ptr, _int, _ptr),
     "eadgan_int8_quantize": (_ptr, _ptr, _ptr, _ptr, _int, _int, _int, _int, _ptr),
-    "eadgan_int8_convt_s2": (_ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _int, _int, _int, _int, _int, _ptr),
+    "eadgan_int8_convt_s2": (_ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _int, _int, _int, _int, _int,
+                             _int, _ptr),
 }
 
 
@@ -64,7 +65,7 @@ class _Library:
 
     def _load(self) -> None:
         path, self.build_log, self.build_seconds = build(
-            sorted(CSRC.glob("*.cu")), "libeadgan_kernels"
+            sorted(CSRC.glob("*.cu")), "libeadgan_kernels", hashed=sorted(CSRC.glob("*.cuh"))
         )
         lib = ctypes.CDLL(str(path))
         for name, argtypes in _SIGNATURES.items():

@@ -24,9 +24,15 @@ k4 s2 p1 mid layers, which carry ~99% of the forward's multiply-adds:
 - the transposed conv accumulates int8 products in int32, then
   ``acc * (a_scale * w_scale) + bias`` and ReLU in float32
   (:func:`int8_convt_relu`; on the card the ``int8_convt`` kernel, which
-  writes NHWC float32).
+  writes NHWC float32, or bf16 rounded from it).
 
 Layers 0 and 4 stay in ``compute_dtype``; the output is a float32 tanh.
+The forward chains the int8 layers: layers 1 and 2 hand the abs-max of
+their float32 outputs to the next quantization (on the card the
+``int8_convt`` epilogue computes it, so the quantization reads its input
+once; on the CPU it is ``x.abs().amax()``, as the quantization would take
+it), and layer 3 writes ``compute_dtype`` directly, which layer 4 reads
+without a cast.  The result is the unchained composition's, bit for bit.
 Each op dispatches on its input's device: a CUDA tensor goes to the
 kernel (``ops/quant_cuda.py``, which launches it or raises), a CPU
 tensor to the plain version here, which is also what the kernel is held
@@ -37,7 +43,7 @@ scale stays on the device, where the convolution's epilogue reads it.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -48,6 +54,7 @@ __all__ = [
     "repack_convt_weight",
     "quantize_activation",
     "quantize_activation_plain",
+    "output_amax_plain",
     "convt_int8_plain",
     "int8_convt_relu",
     "int8_convt_relu_plain",
@@ -118,28 +125,42 @@ def repack_convt_weight(q: torch.Tensor) -> torch.Tensor:
     return torch.stack(phases).contiguous()
 
 
-def quantize_activation_plain(x: torch.Tensor, nhwc: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+def quantize_activation_plain(x: torch.Tensor, nhwc: bool, amax: Optional[torch.Tensor] = None
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dynamic symmetric per-tensor int8 of a float32 activation, NCHW
     (``nhwc=False``) or NHWC: ``(q, scale)`` with ``q`` int8 NHWC,
     contiguous, and ``scale = max(max |x|, 1e-12) / 127`` a 0-d float32
     tensor; ``q = clamp(round(x / scale), -127, 127)``, rounding half to
-    even, as ``eadgan_tpu/ops/quant.py::_quantize_activation``."""
+    even, as ``eadgan_tpu/ops/quant.py::_quantize_activation``.  ``amax``,
+    a 0-d float32 tensor equal to ``max |x|`` (:func:`output_amax_plain`),
+    is taken in place of computing it."""
     if not nhwc:
         x = x.permute(0, 2, 3, 1)
-    amax = x.abs().amax()
+    if amax is None:
+        amax = x.abs().amax()
     scale = torch.clamp_min(amax, 1e-12) / 127.0
     q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
     return q.contiguous(), scale
 
 
-def quantize_activation(x: torch.Tensor, nhwc: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+def output_amax_plain(out: torch.Tensor) -> torch.Tensor:
+    """``max |out|`` as a 0-d float32 tensor: the abs-max that the
+    quantization of ``out`` takes (what the ``int8_convt`` kernel's
+    epilogue computes on the card)."""
+    return out.abs().amax().float()
+
+
+def quantize_activation(x: torch.Tensor, nhwc: bool, amax: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`quantize_activation_plain` on a CPU tensor; the
-    ``quantize_int8`` kernel on a CUDA one."""
+    ``quantize_int8`` kernel on a CUDA one, where ``amax`` is the 0-d
+    view that :func:`int8_convt_relu` returns."""
     if x.is_cuda:
         from eadgan_tpu_torch.ops import quant_cuda
 
-        return quant_cuda.quantize_int8_cuda(x, nhwc)
-    return quantize_activation_plain(x, nhwc)
+        bits = None if amax is None else amax.view(torch.int32)
+        return quant_cuda.quantize_int8_cuda(x, nhwc, bits)
+    return quantize_activation_plain(x, nhwc, amax)
 
 
 def convt_int8_plain(xq: torch.Tensor, wq: torch.Tensor, stride: int, pad: int) -> torch.Tensor:
@@ -151,12 +172,13 @@ def convt_int8_plain(xq: torch.Tensor, wq: torch.Tensor, stride: int, pad: int) 
 
 
 def int8_convt_relu_plain(xq: torch.Tensor, a_scale: torch.Tensor, wq: torch.Tensor,
-                          w_scale: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+                          w_scale: torch.Tensor, bias: torch.Tensor,
+                          out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """The ``int8_convt`` kernel's function: the k4 s2 p1 int8 transposed
     conv of NHWC ``xq``, then ``acc * (a_scale * w_scale) + bias`` and
-    ReLU in float32; NHWC float32 out."""
+    ReLU in float32; NHWC out, float32 rounded to ``out_dtype``."""
     acc = convt_int8_plain(xq, wq, 2, 1)
-    return torch.relu(acc.float() * (a_scale * w_scale) + bias)
+    return torch.relu(acc.float() * (a_scale * w_scale) + bias).to(out_dtype)
 
 
 @dataclasses.dataclass
@@ -176,14 +198,21 @@ class Int8ConvT:
         return cls(wq, repack_convt_weight(wq), w_scale, bias)
 
 
-def int8_convt_relu(xq: torch.Tensor, a_scale: torch.Tensor, layer: Int8ConvT) -> torch.Tensor:
+def int8_convt_relu(xq: torch.Tensor, a_scale: torch.Tensor, layer: Int8ConvT,
+                    out_dtype: torch.dtype = torch.float32, with_amax: bool = False):
     """:func:`int8_convt_relu_plain` on CPU tensors; the ``int8_convt``
-    kernel on CUDA ones."""
+    kernel on CUDA ones.  With ``with_amax``, returns ``(out, amax)``,
+    ``amax`` the 0-d float32 ``max |out|`` (on the card a view of the word
+    the kernel's epilogue wrote) for :func:`quantize_activation`."""
     if xq.is_cuda:
         from eadgan_tpu_torch.ops import quant_cuda
 
-        return quant_cuda.int8_convt_cuda(xq, layer.wp, a_scale, layer.w_scale, layer.bias)
-    return int8_convt_relu_plain(xq, a_scale, layer.wq, layer.w_scale, layer.bias)
+        bits = torch.empty((), dtype=torch.int32, device=xq.device) if with_amax else None
+        out = quant_cuda.int8_convt_cuda(xq, layer.wp, a_scale, layer.w_scale, layer.bias,
+                                         out_dtype, bits)
+        return (out, bits.view(torch.float32)) if with_amax else out
+    out = int8_convt_relu_plain(xq, a_scale, layer.wq, layer.w_scale, layer.bias, out_dtype)
+    return (out, output_amax_plain(out)) if with_amax else out
 
 
 def make_celeba_infer(state_dict: Dict[str, torch.Tensor], quant: str = "int8",
@@ -210,10 +239,15 @@ def make_celeba_infer(state_dict: Dict[str, torch.Tensor], quant: str = "int8",
     def fwd(z, labels, code):
         x = torch.cat([z, labels, code], dim=-1).float()[:, :, None, None]
         nhwc = False  # x's layout: the int8 layers take and give NHWC
+        amax = None  # max |x|, where the int8 layer that wrote x gave it
         for i, layer in enumerate(prepared):
             if isinstance(layer, Int8ConvT):
-                xq, a_scale = quantize_activation(x, nhwc)
-                x, nhwc = int8_convt_relu(xq, a_scale, layer), True  # ReLU fused
+                xq, a_scale = quantize_activation(x, nhwc, amax)
+                if i == _BN_LAYERS[-1]:  # the last int8 layer writes what layer 4 reads
+                    x, amax = int8_convt_relu(xq, a_scale, layer, out_dtype=compute_dtype), None
+                else:
+                    x, amax = int8_convt_relu(xq, a_scale, layer, with_amax=True)
+                nhwc = True  # ReLU fused
                 continue
             weight, bias = layer
             stride, pad = _LAYER_GEOM[i]

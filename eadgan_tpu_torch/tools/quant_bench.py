@@ -12,7 +12,13 @@ beside its bound (the larger of its operations at the card's peak for
 their type and its weights and output at its memory rate).  The int8
 and bf16 forwards' PSNR and largest difference against the float32 eval
 forward on the same latents travel with their speed, and so do the
-weight bytes of the three int8 layers against float32.
+weight bytes of the three int8 layers against float32.  Beside the int8
+forward, its unchained composition (:func:`unchained_int8_forward`: each
+quantization with its own abs-max pass, the int8 layers in float32, layer
+4's input cast) is timed too, and both are traced with ``torch.profiler``
+(:func:`profile_forward`): device time a forward by kernel, and by part
+(the two int8 kernels, cuDNN's convolutions, PyTorch's elementwise and
+copy kernels).
 
 Prints one JSON line (and writes it to ``--out``); needs a CUDA card.
 """
@@ -20,17 +26,21 @@ Prints one JSON line (and writes it to ``--out``); needs a CUDA card.
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
+import torch.nn.functional as F
 
 from eadgan_tpu_torch.cli.common import disable_tf32
 from eadgan_tpu_torch.models import CelebaGenerator
-from eadgan_tpu_torch.ops.quant import Int8ConvT, make_celeba_infer
+from eadgan_tpu_torch.ops.quant import (Int8ConvT, fold_celeba_generator_bn, int8_convt_relu,
+                                        make_celeba_infer, quantize_activation)
 
-__all__ = ["generator_inputs", "int8_layer_inputs", "psnr_db", "measure", "main", "LAYERS"]
+__all__ = ["generator_inputs", "int8_layer_inputs", "psnr_db", "unchained_int8_forward",
+           "profile_forward", "measure", "main", "LAYERS"]
 
 # published peaks of one H100 SXM (NVIDIA data sheet, dense)
 HBM_BYTES_PER_S = 3.35e12
@@ -85,6 +95,82 @@ def int8_layer_inputs(batch: int, h: int, cin: int, cout: int, seed: int = 0):
     return xq, torch.tensor(0.0173), layer, act
 
 
+def unchained_int8_forward(state_dict, compute_dtype=torch.bfloat16, device=None) -> Callable:
+    """The int8 forward of ``make_celeba_infer(quant="int8")`` as separate
+    steps, without its chaining: each quantization computes its own
+    abs-max, each int8 layer writes float32, and layer 4 casts its input
+    to ``compute_dtype``.  The chained forward equals it bit for bit."""
+    folded = fold_celeba_generator_bn(state_dict)
+    if device is not None:
+        folded = [(w.to(device), b.to(device)) for w, b in folded]
+    (w0, b0), (w4, b4) = folded[0], folded[4]
+    w0, w4 = w0.to(compute_dtype), w4.to(compute_dtype)
+    int8_layers = [Int8ConvT.from_folded(w, b) for w, b in folded[1:4]]
+
+    @torch.no_grad()
+    def fwd(z, labels, code):
+        x = torch.cat([z, labels, code], dim=-1).float()[:, :, None, None]
+        x = F.conv_transpose2d(x.to(compute_dtype), w0, None, 1, 0).float() + b0[None, :, None, None]
+        nhwc = False
+        for layer in int8_layers:
+            xq, a_scale = quantize_activation(x, nhwc)
+            x, nhwc = int8_convt_relu(xq, a_scale, layer), True
+        x = x.permute(0, 3, 1, 2).to(compute_dtype)
+        return torch.tanh(F.conv_transpose2d(x, w4, None, 2, 1).float() + b4[None, :, None, None])
+
+    return fwd
+
+
+# a kernel's part of the int8 forward, by the first pattern its name holds
+_PARTS = (("int8_convt", ("int8_convt_kernel",)),
+          ("quantize_int8", ("quantize_nchw_kernel", "quantize_nhwc_kernel", "amax_kernel")),
+          ("cudnn_convt", ("conv", "xmma", "cutlass", "gemm", "sm90", "dgrad", "cudnn")),
+          ("elementwise", ("elementwise", "reduce", "cat", "copy", "fill")))
+
+
+def _part(name: str) -> str:
+    low = name.lower()
+    for part, patterns in _PARTS:
+        if any(p in low for p in patterns):
+            return part
+    return "other"
+
+
+def profile_forward(fn: Callable, inputs, forwards: int = 20) -> dict:
+    """Device time a forward by kernel name and by part (``_PARTS``), from
+    a ``torch.profiler`` trace of ``forwards`` back-to-back calls of
+    ``fn(*inputs)`` after a warm-up.  A trace that shows no kernel says so
+    (``kernels_in_trace`` false, times None)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn(*inputs)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(forwards):
+            fn(*inputs)
+        torch.cuda.synchronize()
+    per_kernel = collections.defaultdict(lambda: [0, 0.0])  # name -> [calls, us]
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(
+                e, "is_user_annotation", False):
+            per_kernel[e.name][0] += 1
+            per_kernel[e.name][1] += e.time_range.elapsed_us()
+    seen = bool(per_kernel)
+    parts = collections.defaultdict(float)
+    for name, (_, us) in per_kernel.items():
+        parts[_part(name)] += us / 1e3 / forwards
+    top = sorted(per_kernel.items(), key=lambda kv: kv[1][1], reverse=True)
+    return {
+        "kernels_in_trace": seen,
+        "device_kernel_ms_per_forward": sum(parts.values()) if seen else None,
+        "kernel_launches_per_forward": sum(c for c, _ in per_kernel.values()) / forwards if seen else None,
+        "ms_per_forward_by_part": dict(parts) if seen else None,
+        "kernels": [{"name": name[:120], "part": _part(name), "calls_per_forward": calls / forwards,
+                     "device_ms_per_forward": us / 1e3 / forwards} for name, (calls, us) in top],
+    }
+
+
 def psnr_db(out: torch.Tensor, ref: torch.Tensor) -> float:
     """PSNR of tanh outputs (peak to peak 2)."""
     return 10 * math.log10(4.0 / ((out - ref) ** 2).mean().item())
@@ -102,6 +188,7 @@ def measure(batch: int = 128, cycles: Optional[float] = None) -> dict:
     forwards = {
         "bf16_folded": make_celeba_infer(sd, quant="none", compute_dtype=torch.bfloat16, device="cuda"),
         "int8": make_celeba_infer(sd, quant="int8", compute_dtype=torch.bfloat16, device="cuda"),
+        "int8_unchained": unchained_int8_forward(sd, torch.bfloat16, device="cuda"),
     }
 
     def f32(*inputs):
@@ -121,6 +208,7 @@ def measure(batch: int = 128, cycles: Optional[float] = None) -> dict:
         "int8": ((flops - 2 * sum(macs[i] for i in _INT8)) / BF16_TENSOR_FLOPS_PER_S + int8_ops_s,
                  (2 * (params - int8_weights) + int8_weights + out_bytes) / HBM_BYTES_PER_S),
     }
+    seconds["int8_unchained"] = seconds["int8"]
     ref = f32(*x)
     record = {"inference": "celeba_generator", "batch_size": batch, "timing": "cuda_events",
               "device": torch.cuda.get_device_name(0), "gflop_per_batch": flops / 1e9,
@@ -136,6 +224,10 @@ def measure(batch: int = 128, cycles: Optional[float] = None) -> dict:
             out = fn(*x)
             record[name].update(psnr_db_vs_f32_eval=psnr_db(out, ref),
                                 max_abs_err_vs_f32_eval=(out - ref).abs().max().item())
+    record["int8"]["equals_unchained"] = torch.equal(forwards["int8"](*x),
+                                                     forwards["int8_unchained"](*x))
+    record["profile"] = {name: profile_forward(forwards[name], x)
+                         for name in ("int8", "int8_unchained")}
     return record
 
 

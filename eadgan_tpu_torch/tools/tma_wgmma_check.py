@@ -39,7 +39,7 @@ from eadgan_tpu_torch.ops import _build
 __all__ = ["main", "swizzle_128b_chunk", "unswizzle_128b", "expected_box"]
 
 SOURCE = _build.CSRC / "bringup" / "tma_wgmma_check.cu"
-KERNEL_SOURCE = _build.CSRC / "fused_conv_lrelu.cu"
+KERNEL_SOURCES = [_build.CSRC / "fused_conv_lrelu.cu", _build.CSRC / "hopper.cuh"]
 B_OFFSETS = (8192, 1024)  # the kernel's B descriptor: leading, stride byte offsets
 
 
@@ -74,7 +74,7 @@ def expected_box(x: torch.Tensor, c0: int, c1: int, c2: int, c3: int) -> torch.T
 
 
 def _library() -> ctypes.CDLL:
-    path, log, _ = _build.build([SOURCE], "libeadgan_check", hashed=[KERNEL_SOURCE])
+    path, log, _ = _build.build([SOURCE], "libeadgan_check", hashed=KERNEL_SOURCES)
     for line in log.splitlines():
         if "registers" in line or "spill" in line or "warning" in line.lower():
             print(f"ptxas: {line.strip()}", flush=True)

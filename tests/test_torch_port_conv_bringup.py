@@ -1,8 +1,10 @@
 """Host-side Python of the fused conv kernel's bring-up tools, on the CPU.
 
 ``tools.tma_wgmma_check``'s swizzle and A-box helpers are what its card
-steps compare TMA's copies with; ``tools.tma_wgmma_check`` and
-``tools.conv_ablation`` refuse to run without a card.  Exact
+steps compare TMA's copies with; ``tools.conv_ablation``'s variants of
+the fused conv and the int8 kernels find their anchors in the kernels'
+sources; ``tools.tma_wgmma_check`` and ``tools.conv_ablation`` refuse to
+run without a card.  Exact
 comparisons: these are copies of values.
 """
 
@@ -51,6 +53,28 @@ def test_ablation_refuses_a_source_without_its_anchors(name):
     else:
         with pytest.raises(ValueError, match=f"variant {name}: anchor"):
             conv_ablation.variant_source(name, source)
+
+
+@pytest.mark.parametrize("kernel,name", [(k, n) for k in ("int8_convt", "quantize_int8")
+                                         for n in sorted(conv_ablation.KERNELS[k][1])])
+def test_int8_ablation_refuses_a_source_without_its_anchors(kernel, name):
+    source = "__global__ void k() {}\n"
+    variants = conv_ablation.KERNELS[kernel][1]
+    if name == "full":
+        assert conv_ablation.variant_source(name, source, variants) == source
+    else:
+        with pytest.raises(ValueError, match=f"variant {name}: anchor"):
+            conv_ablation.variant_source(name, source, variants)
+
+
+@pytest.mark.parametrize("kernel", sorted(conv_ablation.KERNELS))
+def test_ablation_anchors_are_in_the_kernels(kernel):
+    """Every variant's anchors are in the kernel's source as it is, so
+    each variant stubs out its part (and only ``full`` is the kernel)."""
+    source, variants, _ = conv_ablation.KERNELS[kernel]
+    text = source.read_text()
+    for name in variants:
+        assert (conv_ablation.variant_source(name, text, variants) == text) == (name == "full")
 
 
 @pytest.mark.parametrize("tool", [tma_wgmma_check, conv_ablation],

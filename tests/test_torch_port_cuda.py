@@ -41,9 +41,11 @@ and then reads its state reads the per-step engine's values, bit for bit.
 The int8 generator's kernels: ``int8_convt`` bit-equal to
 ``int8_convt_relu_plain`` (int32 sums exact on both sides, the same three
 float32 operations in the epilogue) at the three quantized layers'
-shapes, batch 128, the CLI's 100 and 3; ``quantize_int8`` bit-equal to
+shapes, batch 128, the CLI's 100 and 3, writing float32 and bf16, its
+abs-max word equal to the plain output's; ``quantize_int8`` bit-equal to
 its plain version from NCHW and NHWC inputs, with exact .5 ties, normal
-values and all zeros; the int8 forward on the card against the CPU's, 2e-2
+values, -0.0 and all zeros, with its own abs-max and a given one; the
+int8 forward on the card against the CPU's, 2e-2
 absolute on tanh outputs (each side quantizes its own float32 layer
 outputs, so an activation can round one step apart); and both wrappers'
 refusals.
@@ -367,23 +369,27 @@ def test_train_state_resumes_across_chain_settings(cuda, tmp_path, monkeypatch, 
 INT8_LAYERS = [(4, 1024, 512), (8, 512, 256), (16, 256, 128)]
 
 
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("batch", [128, 100, 3])
 @pytest.mark.parametrize("h,cin,cout", INT8_LAYERS)
-def test_int8_convt_kernel_equals_plain(cuda, h, cin, cout, batch):
+def test_int8_convt_kernel_equals_plain(cuda, h, cin, cout, batch, out_dtype):
     """Bit-equal, float epilogue included: the int32 sums are exact on
-    both sides and the epilogue rounds the same three operations."""
+    both sides and the epilogue rounds the same three operations (and the
+    same bf16 rounding); the abs-max word equals the plain output's."""
     from eadgan_tpu_torch.ops import quant_cuda
-    from eadgan_tpu_torch.ops.quant import int8_convt_relu, int8_convt_relu_plain
+    from eadgan_tpu_torch.ops.quant import int8_convt_relu, int8_convt_relu_plain, output_amax_plain
 
     xq, a_scale, layer, _ = int8_layer_inputs(batch, h, cin, cout)
-    ref = int8_convt_relu_plain(xq, a_scale, layer.wq, layer.w_scale, layer.bias)
+    ref = int8_convt_relu_plain(xq, a_scale, layer.wq, layer.w_scale, layer.bias, out_dtype)
     card = type(layer)(*(t.to(cuda) for t in (layer.wq, layer.wp, layer.w_scale, layer.bias)))
     before = quant_cuda.launch_count["int8_convt"]
-    got = int8_convt_relu(xq.to(cuda), a_scale.to(cuda), card)
+    got, amax = int8_convt_relu(xq.to(cuda), a_scale.to(cuda), card, out_dtype, with_amax=True)
     torch.cuda.synchronize()
     assert quant_cuda.launch_count["int8_convt"] == before + 1
-    assert got.shape == (batch, 2 * h, 2 * h, cout) and got.dtype == torch.float32
+    assert got.shape == (batch, 2 * h, 2 * h, cout) and got.dtype == out_dtype
     assert torch.equal(got.cpu(), ref)
+    assert amax.shape == () and amax.dtype == torch.float32
+    assert torch.equal(amax.cpu(), output_amax_plain(ref))
     assert (ref > 0).float().mean() > 0.2  # the ReLU left real values to compare
 
 
@@ -398,22 +404,31 @@ def _tie_activation(shape, seed=0):
     return x
 
 
+@pytest.mark.parametrize("given_amax", [False, True], ids=["own_amax", "given_amax"])
 @pytest.mark.parametrize("nhwc", [False, True], ids=["nchw", "nhwc"])
 @pytest.mark.parametrize("shape", [(128, 1024, 4, 4), (100, 512, 8, 8), (3, 256, 16, 16),
                                    (2, 12, 3, 5)])
-def test_quantize_int8_kernel_equals_plain(cuda, shape, nhwc):
+def test_quantize_int8_kernel_equals_plain(cuda, shape, nhwc, given_amax):
+    """Bit-equal from NCHW and NHWC, with exact .5 ties, normal values, a
+    -0.0 among them and all zeros; with the kernel's own abs-max (two
+    launches) and with the abs-max given (one launch)."""
     from eadgan_tpu_torch.ops import quant_cuda
-    from eadgan_tpu_torch.ops.quant import quantize_activation, quantize_activation_plain
+    from eadgan_tpu_torch.ops.quant import (output_amax_plain, quantize_activation,
+                                            quantize_activation_plain)
 
     gen = torch.Generator().manual_seed(1)
-    for x in (_tie_activation(shape), torch.randn(shape, generator=gen) * 3, torch.zeros(shape)):
+    normal = torch.randn(shape, generator=gen) * 3
+    normal.view(-1)[3] = -0.0
+    for x in (_tie_activation(shape), normal, torch.zeros(shape)):
         if nhwc:
             x = x.permute(0, 2, 3, 1).contiguous()
         ref_q, ref_scale = quantize_activation_plain(x, nhwc)
+        amax = output_amax_plain(x).to(cuda) if given_amax else None
         before = quant_cuda.launch_count["quantize_int8"]
-        q, scale = quantize_activation(x.to(cuda), nhwc)
+        q, scale = quantize_activation(x.to(cuda), nhwc, amax)
         torch.cuda.synchronize()
-        assert quant_cuda.launch_count["quantize_int8"] == before + 2  # abs-max, then quantize
+        # abs-max, then quantize; one launch when the abs-max is given
+        assert quant_cuda.launch_count["quantize_int8"] == before + (1 if given_amax else 2)
         assert q.dtype == torch.int8 and q.shape == ref_q.shape and scale.shape == ()
         assert torch.equal(q.cpu(), ref_q) and torch.equal(scale.cpu(), ref_scale)
 
@@ -434,7 +449,8 @@ def test_int8_generator_on_the_card_matches_the_cpu(cuda):
         *(t.to(cuda) for t in x))
     torch.cuda.synchronize()
     assert quant_cuda.launch_count["int8_convt"] == before["int8_convt"] + 3
-    assert quant_cuda.launch_count["quantize_int8"] == before["quantize_int8"] + 6
+    # layer 1's input takes an abs-max launch; layers 2 and 3 get theirs from int8_convt
+    assert quant_cuda.launch_count["quantize_int8"] == before["quantize_int8"] + 4
     assert got.dtype == torch.float32 and got.shape == (8, 3, 64, 64)
     assert (got.cpu() - ref).abs().max().item() <= 2e-2
 
@@ -452,9 +468,24 @@ def test_int8_kernels_reject(cuda):
     with pytest.raises(ValueError, match="multiple of 4"):
         quant_cuda.quantize_int8_cuda(x[:, :6].contiguous(), False)
 
+    with pytest.raises(TypeError, match="int32"):
+        quant_cuda.quantize_int8_cuda(x, False, torch.zeros((), device=cuda))
+    with pytest.raises(ValueError, match="one int32 word"):
+        quant_cuda.quantize_int8_cuda(x, False, torch.zeros(2, dtype=torch.int32, device=cuda))
+
     xq, a_scale, layer, _ = int8_layer_inputs(2, 4, 64, 16)
     args = [t.to(cuda) for t in (xq, layer.wp, a_scale, layer.w_scale, layer.bias)]
     quant_cuda.int8_convt_cuda(*args)  # the arguments as they are pass
+    bits = torch.empty((), dtype=torch.int32, device=cuda)
+    out = quant_cuda.int8_convt_cuda(*args, out_dtype=torch.bfloat16, amax_out=bits)
+    assert out.dtype == torch.bfloat16
+    for dtype in (torch.float16, torch.int8, torch.float64):
+        with pytest.raises(TypeError, match="float32 or bfloat16"):
+            quant_cuda.int8_convt_cuda(*args, out_dtype=dtype)
+    with pytest.raises(TypeError, match="int32"):
+        quant_cuda.int8_convt_cuda(*args, amax_out=torch.zeros((), device=cuda))
+    with pytest.raises(ValueError, match="must divide 128"):  # W = 3: no tile of whole rows
+        quant_cuda.int8_convt_cuda(args[0][:, :, :3].contiguous(), *args[1:])
     bad = list(args)
     bad[0] = args[0].cpu()
     with pytest.raises(ValueError, match="CUDA"):

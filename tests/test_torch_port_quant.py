@@ -15,7 +15,14 @@ as in ``tests/test_quant.py``, then carried into the port by
 * the int8 transposed conv: int32 sums equal at each quantized layer's
   geometry, and the kernel's phase decomposition (the repacked weight
   taken as four GEMMs over shifted input taps, as ``csrc/int8_convt.cu``
-  does) equal to it.
+  does) equal to it;
+* a layer's output, float32 and rounded to bf16 (``out_dtype``), against
+  JAX's op by op; the abs-max handed to the next quantization
+  (``output_amax_plain``) against ``jnp.max(jnp.abs(x))``, -0.0
+  included; the quantization with that abs-max given.
+
+The chained forward (abs-max handed on, the last int8 layer writing
+``compute_dtype``) equals its unchained composition bit for bit.
 
 The whole int8 forward against JAX's, tolerances measured here:
 
@@ -184,6 +191,87 @@ def test_int8_layer_epilogue():
     acc = quant.convt_int8_plain(xq, layer.wq, 2, 1).float()
     assert torch.equal(got, torch.relu(acc * (a_scale * layer.w_scale) + layer.bias))
     assert (got == 0).any() and (got > 0).any()
+
+
+def _jax_layer(rng, h, cin, cout):
+    """One int8 layer's inputs and JAX's float32 output for them, op by op
+    as ``jq.make_celeba_infer`` computes it: int32 sums, ``* (a_scale *
+    w_scale) + bias``, ReLU."""
+    xq, kernel = _int8(rng, (2, h, h, cin)), _int8(rng, (4, 4, cin, cout))
+    w_scale = rng.uniform(1e-4, 1e-3, cout).astype(np.float32)
+    bias = (0.1 * rng.standard_normal(cout)).astype(np.float32)
+    a_scale = np.float32(0.0173)
+    y = jq._convt(jnp.asarray(xq), jnp.asarray(kernel), 2, 1, jnp.int32)
+    ref = jax.nn.relu(y.astype(jnp.float32) * (a_scale * jnp.asarray(w_scale)) + jnp.asarray(bias))
+    port = (torch.from_numpy(xq), torch.tensor(a_scale), _torch_layout(kernel),
+            torch.from_numpy(w_scale), torch.from_numpy(bias))
+    return port, ref
+
+
+@pytest.mark.parametrize("h,cin,cout", LAYERS)
+def test_int8_layer_output_in_bf16_equals_jax(h, cin, cout):
+    """``int8_convt_relu_plain`` in float32 equals JAX's layer output bit
+    for bit, and with ``out_dtype=torch.bfloat16`` equals that output's
+    ``.astype(jnp.bfloat16)`` (round to nearest even) bit for bit."""
+    port, ref = _jax_layer(np.random.default_rng(10 + h), h, cin, cout)
+    got = quant.int8_convt_relu_plain(*port)
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    got = quant.int8_convt_relu_plain(*port, out_dtype=torch.bfloat16)
+    assert got.dtype == torch.bfloat16 and got.shape == (2, 2 * h, 2 * h, cout)
+    want = np.asarray(ref.astype(jnp.bfloat16).astype(jnp.float32))
+    np.testing.assert_array_equal(got.float().numpy().view(np.uint32), want.view(np.uint32))
+    assert (want > 0).mean() > 0.2 and (want == 0).any()
+
+
+@pytest.mark.parametrize("kind", ["layer", "negative_zero", "all_zero"])
+def test_output_amax_equals_jax(kind):
+    """``output_amax_plain`` equals ``jnp.max(jnp.abs(x))`` of JAX's layer
+    output exactly, bits included, also where the output holds -0.0 (and
+    where -0.0 and 0.0 are all it holds: the abs-max is +0.0)."""
+    _, ref = _jax_layer(np.random.default_rng(3), 8, 512, 256)
+    x = np.array(ref)
+    if kind == "negative_zero":
+        x.reshape(-1)[::7] = -0.0
+    elif kind == "all_zero":
+        x[...] = 0.0
+        x.reshape(-1)[::3] = -0.0
+    assert np.signbit(x).any() == (kind != "layer")
+    want = np.asarray(jnp.max(jnp.abs(jnp.asarray(x))))
+    got = quant.output_amax_plain(torch.from_numpy(x))
+    assert got.shape == () and got.dtype == torch.float32
+    assert got.numpy().view(np.uint32) == want.view(np.uint32)
+
+
+@pytest.mark.parametrize("kind", ["ties", "normal", "zeros"])
+def test_activation_quantization_with_a_given_amax_equals_jax(kind):
+    """``quantize_activation_plain`` handed the abs-max (as the chained
+    forward hands it from the layer before) equals
+    ``_quantize_activation``, from NCHW and NHWC."""
+    rng = np.random.default_rng(2)
+    shape = (B, 16, 16, 256)  # NHWC, the input of layer 3
+    x = {"ties": lambda: _tie_activation(shape, rng),
+         "normal": lambda: np.maximum(rng.standard_normal(shape) * 3, 0).astype(np.float32),
+         "zeros": lambda: np.zeros(shape, np.float32)}[kind]()
+    ref_q, ref_scale = (np.asarray(a) for a in jq._quantize_activation(jnp.asarray(x)))
+    amax = quant.output_amax_plain(torch.from_numpy(x))
+    for nhwc in (True, False):
+        arg = torch.from_numpy(x if nhwc else np.ascontiguousarray(x.transpose(0, 3, 1, 2)))
+        q, scale = quant.quantize_activation(arg, nhwc, amax)
+        np.testing.assert_array_equal(q.numpy(), ref_q)
+        np.testing.assert_array_equal(scale.numpy(), ref_scale)
+
+
+@pytest.mark.parametrize("compute", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_chained_int8_forward_equals_the_unchained_one(state_dict, compute):
+    """The chained forward (layers 1 and 2 hand their abs-max on, layer 3
+    writes ``compute_dtype``) equals the separate steps bit for bit."""
+    from eadgan_tpu_torch.tools.quant_bench import unchained_int8_forward
+
+    x = [torch.from_numpy(a) for a in _inputs(5)]
+    got = quant.make_celeba_infer(state_dict, quant="int8", compute_dtype=compute)(*x)
+    want = unchained_int8_forward(state_dict, compute)(*x)
+    assert got.dtype == torch.float32 and torch.equal(got, want)
 
 
 @pytest.mark.parametrize("compute,tol", [("float32", 2e-2), ("bfloat16", 2e-2)])
