@@ -3,7 +3,7 @@
 NVIDIA H100.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It needs one
-CUDA card and the CUDA toolkit (nvcc) and runs five phases, failing with
+CUDA card and the CUDA toolkit (nvcc) and runs six phases, failing with
 a non-zero exit on the first that fails:
 
 1. environment: card name and power limit, torch/CUDA versions, TF32
@@ -98,7 +98,24 @@ a non-zero exit on the first that fails:
    (128, 64, 64, 3), at (128, 64, 64, 1) in both paddings and at the
    MNIST step's (128, 32, 32, 1), and at the scorer's (500, 64, 64, 1)
    and (500, 64, 64, 3) in ``zeros``; the Representer's batch of 500;
-   and the fused conv's plain version, bound and host cost per call.
+   and the fused conv's plain version, bound and host cost per call;
+6. robustness, CelebA at batch 128 on 8,192 synthetic faces (64 batches
+   an epoch): (a) ``run_epochs`` at ``--chain 32`` in f32 under
+   deterministic cuDNN, stopped by an inline event at step 40, hands
+   ``on_shutdown`` the train state of a ``max_steps`` run to the same
+   window end, bit for bit (``tools/stop_check.py``; its warp launches,
+   one a step, are this slice's path in the ``kernels`` line); (b)
+   ``cli.celeba --max_steps 200`` (f32, ``--chain 32``) gets SIGTERM once
+   a logged step reaches 64, exits 86 at a window end S with
+   ``celeba_train_state_S.ckpt`` written, and ``--resume auto
+   --max_steps 200-S`` ends at step 200 with exit 0 (the seconds from
+   SIGTERM to exit and of the final save); (c) ``cli.supervise
+   --max_restarts 1 celeba -- ... --watchdog 15`` (bf16) with
+   ``EADGAN_FAULT_HANG_STEP=40``: exit 87 with the stall record and the
+   thread stacks, the relaunch with ``--resume auto``, exit 0 (the
+   seconds from the relaunch to the first logged step); (d) the replayed
+   bf16 step through ``run_epochs`` without, then with, the SIGTERM guard
+   armed and a 60 s watchdog.
 
 Its last lines are the ``{"kernels": [...]}`` record, the ``nvidia-smi``
 name/power-limit line, and ``{"ok": true, "device": {...}}``.
@@ -1493,6 +1510,309 @@ def phase_timing(torch, errs, probe, int8_launches):
                                                                         int8_launches)]
 
 
+# --- phase 6: robustness ----------------------------------------------------
+
+ROBUST_BATCH, ROBUST_FACES = 128, 8192  # 64 batches an epoch: whole 32-step windows
+ROBUST_STEPS = 200  # the SIGTERM drill's schedule
+ROBUST_SIGTERM_AFTER = 64  # SIGTERM once a logged step reaches this
+ROBUST_HANG_STEP, ROBUST_WATCHDOG = 40, 15  # the supervised drill
+ROBUST_COST_WINDOWS = 8  # windows of 32 replays a run in the guard's cost
+
+
+class Child:
+    """A subprocess in a session of its own, its stdout and stderr lines
+    collected with their host time as they arrive; leaving the ``with``
+    kills the whole session if it still runs (a supervisor's trainer
+    included), so no process outlives the phase that started it."""
+
+    def __init__(self, argv, env):
+        import threading
+
+        self.lines = {"out": [], "err": []}
+        self._cv = threading.Condition()
+        self.proc = subprocess.Popen(argv, env=env, cwd=ROOT, stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True, start_new_session=True)
+        self._readers = [threading.Thread(target=self._read, args=(k, f), daemon=True)
+                         for k, f in (("out", self.proc.stdout), ("err", self.proc.stderr))]
+        for t in self._readers:
+            t.start()
+
+    def _read(self, key, stream):
+        for line in stream:
+            with self._cv:
+                self.lines[key].append((time.perf_counter(), line.rstrip("\n")))
+                self._cv.notify_all()
+        with self._cv:
+            self.lines[key].append((time.perf_counter(), None))  # end of stream
+            self._cv.notify_all()
+
+    def wait_line(self, pred, timeout, start=0):
+        """``(index, host time, line)`` of the first stdout line from
+        ``start`` on that ``pred`` accepts; fails at the end of the stream
+        or after ``timeout`` seconds."""
+        deadline = time.monotonic() + timeout
+        with self._cv:
+            i = start
+            while True:
+                out = self.lines["out"]
+                while i < len(out):
+                    t, line = out[i]
+                    check(line is not None, f"{self.proc.args[:4]}: output ended before the line "
+                          f"awaited; stderr tail {self.text('err')[-3000:]}")
+                    if pred(line):
+                        return i, t, line
+                    i += 1
+                left = deadline - time.monotonic()
+                check(left > 0, f"{self.proc.args[:4]}: no awaited line in {timeout} s")
+                self._cv.wait(min(left, 1.0))
+
+    def wait(self, timeout):
+        try:
+            rc = self.proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            fail(f"{self.proc.args[:4]} did not exit in {timeout} s")
+        for t in self._readers:
+            t.join(timeout=30)
+        return rc
+
+    def text(self, key):
+        return "\n".join(line for _, line in self.lines[key] if line is not None)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        import signal
+
+        if self.proc.poll() is None:
+            try:
+                os.killpg(self.proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            self.proc.wait()
+
+
+def logged_step(line: str, n_batches: int) -> int:
+    """The step of a trainer's progress line, ``[Epoch e/n] [Batch b/m] ...``
+    (-1 for any other line)."""
+    if not line.startswith("[Epoch "):
+        return -1
+    epoch = int(line.split("]")[0].split()[1].split("/")[0])
+    batch = int(line.split("[Batch ")[1].split("/")[0])
+    return epoch * n_batches + batch
+
+
+def robust_env(**extra):
+    return dict(os.environ, EADGAN_PLATFORM="cuda", EADGAN_SYNTH_N=str(ROBUST_FACES),
+                PYTHONUNBUFFERED="1",
+                PYTHONPATH=os.pathsep.join(filter(None, [ROOT, os.environ.get("PYTHONPATH")])),
+                **extra)
+
+
+def robust_stop_in_process(torch):
+    """(a) ``run_epochs`` at ``--chain 32``, CelebA f32 at batch 128, cuDNN
+    deterministic: an inline event sets ``stop_event`` at step 40; the
+    state ``on_shutdown`` copies at its step S equals, bit for bit, that of
+    ``run_epochs(max_steps=S)`` from the same seed and weights
+    (``tools/stop_check.py``); the warp's launches of the stopped run, one
+    a step, are this slice's main path."""
+    from eadgan_tpu_torch.ops import stn_cuda
+    from eadgan_tpu_torch.tools.stop_check import run_stop_check
+
+    stn_cuda.reset_launch_count()  # counts from here read this path only
+    report = run_stop_check("celeba", batch=ROBUST_BATCH, chain=32, stop_at=ROBUST_HANG_STEP,
+                            n_images=ROBUST_FACES)
+    launches = stn_cuda.launch_count - report["warp_launches"]  # run B's
+    emit({"robust_stop": {k: v for k, v in report.items() if k != "window_ends"}})
+    check(report["ok"], f"a graceful stop against a run to the same step: {report}")
+    check(report["warp_launches"] == report["stopped_at"],
+          f"warp launches in the stopped run: {report['warp_launches']}")
+    check(launches == report["stopped_at"], f"warp launches in the max_steps run: {launches}")
+    return report
+
+
+def robust_sigterm_cli(torch):
+    """(b) ``cli.celeba --batch_size 128 --max_steps 200`` (default
+    ``--chain 32``, f32) gets SIGTERM once a logged step reaches 64: exit
+    86 at a window end S with the final train state written, then
+    ``--resume auto --max_steps 200-S`` ends at step 200 with exit 0."""
+    import signal
+
+    from eadgan_tpu_torch.train.chain import plan_windows
+
+    module = "eadgan_tpu_torch.cli.celeba"
+    n_batches = ROBUST_FACES // ROBUST_BATCH
+    ends = set()  # the window ends of the schedule, as the engine plans them
+    for e in range(ROBUST_STEPS // n_batches + 1):
+        for ws, k in plan_windows(e * n_batches, n_batches, 32, (4000, 60000), ROBUST_STEPS):
+            ends.add(ws + k)
+    with tempfile.TemporaryDirectory(prefix="eadgan_robust_") as tmp:
+        common = [sys.executable, "-m", module, "--batch_size", str(ROBUST_BATCH), "--data_dir", tmp,
+                  "--out_dir", os.path.join(tmp, "images"), "--ckpt_dir", tmp]
+        t_start = time.perf_counter()
+        with Child(common + ["--max_steps", str(ROBUST_STEPS)], robust_env()) as child:
+            _, t_seen, seen = child.wait_line(
+                lambda l: logged_step(l, n_batches) >= ROBUST_SIGTERM_AFTER, timeout=300)
+            t_sig = time.perf_counter()
+            child.proc.send_signal(signal.SIGTERM)
+            rc = child.wait(timeout=120)
+            t_exit = time.perf_counter()
+            out, err = child.text("out"), child.text("err")
+        check(rc == 86, f"SIGTERM: exit {rc}, stderr tail {err[-3000:]}")
+        check("preemption: caught signal" in err, "the guard's notice")
+        line = [x for x in out.splitlines()
+                if x.startswith("graceful shutdown: saving final train state at step ")]
+        check(len(line) == 1, f"the final-save line: {line}")
+        stopped = int(line[0].rsplit(" ", 1)[1])
+        saved_s = float([x for x in out.splitlines()
+                         if x.startswith("graceful shutdown: final train state saved in ")][0]
+                        .split(" in ")[1].split()[0])
+        check(stopped in ends and logged_step(seen, n_batches) < stopped < ROBUST_STEPS,
+              f"stopped at {stopped}: not a window end past the logged step {seen!r}")
+        path = os.path.join(tmp, f"celeba_train_state_{stopped}.ckpt")
+        check(os.path.isfile(path), f"missing {path}")
+        check(torch.load(path, weights_only=True)["step"] == stopped, "the final file's step")
+
+        jsonl = os.path.join(tmp, "resumed.jsonl")
+        t0 = time.perf_counter()
+        with Child(common + ["--resume", "auto", "--max_steps", str(ROBUST_STEPS - stopped),
+                             "--jsonl", jsonl], robust_env()) as child:
+            rc = child.wait(timeout=300)
+            err = child.text("err")
+        resume_wall = time.perf_counter() - t0
+        check(rc == 0, f"--resume auto after SIGTERM: exit {rc}, stderr tail {err[-3000:]}")
+        steps = [r["step"] for r in read_records(jsonl)]
+        check(steps == list(range(stopped, ROBUST_STEPS)),
+              f"resumed steps {steps[:3]}..{steps[-3:]}")
+    record = {"sigterm_cli": module, "batch_size": ROBUST_BATCH, "compute": "f32", "chain": 32,
+              "max_steps": ROBUST_STEPS, "sigterm_after_logged_step": logged_step(seen, n_batches),
+              "stopped_at": stopped, "exit": 86, "sigterm_to_exit_s": t_exit - t_sig,
+              "final_save_s": saved_s, "start_to_sigterm_s": t_sig - t_start,
+              "seen_to_sigterm_s": t_sig - t_seen, "resume_wall_s": resume_wall,
+              "resumed_to": ROBUST_STEPS}
+    emit(record)
+    return record
+
+
+def robust_supervised_stall(torch):
+    """(c) ``cli.supervise --max_restarts 1 celeba -- ... --watchdog 15``
+    (bf16, ``--chain 32``, 96 steps) with ``EADGAN_FAULT_HANG_STEP=40``
+    and a marker file: the first life hangs at its first beat past step
+    40, its watchdog exits 87 with a stall record and every thread's
+    stack, the supervisor relaunches it with ``--resume auto`` (the
+    marker keeps the fault from firing again) and the second life exits
+    0.  The restart cost is the host time from the relaunch line to the
+    second life's first logged step."""
+    from eadgan_tpu_torch.ops import _build
+
+    n_batches = ROBUST_FACES // ROBUST_BATCH
+    # phase 1 built the kernels: the trainers load them from the build cache
+    warm = _build.LIBRARY.path is not None and _build.LIBRARY.path.is_file()
+    with tempfile.TemporaryDirectory(prefix="eadgan_robust_") as tmp:
+        marker = os.path.join(tmp, "fault_fired")
+        argv = [sys.executable, "-m", "eadgan_tpu_torch.cli.supervise", "--max_restarts", "1",
+                "celeba", "--", "--batch_size", str(ROBUST_BATCH), "--compute", "bf16", "--max_steps", "96",
+                "--data_dir", tmp, "--out_dir", os.path.join(tmp, "images"), "--ckpt_dir", tmp,
+                "--watchdog", str(ROBUST_WATCHDOG)]
+        env = robust_env(EADGAN_FAULT_HANG_STEP=str(ROBUST_HANG_STEP),
+                         EADGAN_FAULT_HANG_MARKER=marker)
+        t_start = time.perf_counter()
+        with Child(argv, env) as child:
+            i_hang, t_hang, hang = child.wait_line(
+                lambda l: l.startswith("fault injection: hanging at step"), timeout=300)
+            i_restart, t_restart, _ = child.wait_line(
+                lambda l: "restart 1/1 with --resume auto" in l, timeout=ROBUST_WATCHDOG + 120,
+                start=i_hang)
+            _, t_restored, restored = child.wait_line(
+                lambda l: l.startswith("--resume auto: restored"), timeout=300, start=i_restart)
+            _, t_first, first = child.wait_line(lambda l: logged_step(l, n_batches) >= 0,
+                                                timeout=300, start=i_restart)
+            rc = child.wait(timeout=300)
+            out, err = child.text("out"), child.text("err")
+        wall = time.perf_counter() - t_start
+        check(rc == 0, f"supervised run: exit {rc}, stderr tail {err[-3000:]}")
+        check("child exited 87 (watchdog stall)" in out, "the supervisor saw no exit 87")
+        check("finished cleanly after 1 restart(s)" in out, "the second life did not finish")
+        check('"event": "watchdog_stall"' in err, "no stall record on stderr")
+        check("Thread 0x" in err or "Current thread" in err, "no thread stacks on stderr")
+        check(os.path.isfile(marker), "the fault never fired")
+        stall = json.loads(next(x for x in err.splitlines() if '"watchdog_stall"' in x))
+    record = {"supervised_stall": "celeba", "batch_size": ROBUST_BATCH, "compute": "bf16", "chain": 32,
+              "watchdog_s": ROBUST_WATCHDOG, "hang": hang, "stall_record": stall,
+              "hang_to_relaunch_s": t_restart - t_hang, "relaunch_to_restored_s":
+              t_restored - t_restart, "restored": restored,
+              "relaunch_to_first_logged_step_s": t_first - t_restart,
+              "first_logged_step": logged_step(first, n_batches), "wall_s": wall,
+              "exits": [87, 0], "kernel_cache_warm": warm}
+    emit(record)
+    return record
+
+
+def robust_guard_cost(torch):
+    """(d) The replayed CelebA bf16 step at batch 128 through ``run_epochs``
+    (``--chain 32``, 8 windows of 32, inline event at each window end),
+    without the guard and the watchdog, then with the SIGTERM guard armed
+    and ``watchdog=60``: phase 5's method, CUDA events recorded at the
+    window ends, the median over the windows after the capture's of each
+    window's time over 32, and the loop step by host clock from
+    ``EADGAN_CHAIN_TRACE``."""
+    from eadgan_tpu_torch.data.celeba import _synthetic_faces
+    from eadgan_tpu_torch.train.engine import run_epochs
+    from eadgan_tpu_torch.utils.preempt import PreemptionGuard
+    from eadgan_tpu_torch.utils.profiler import build_step
+
+    faces = _synthetic_faces(n=ROBUST_FACES, size=64, seed=0)
+    record = {"guard_cost": "celeba_bf16", "batch_size": ROBUST_BATCH, "chain": CHAIN_WINDOW,
+              "windows": ROBUST_COST_WINDOWS}
+    for mode in ("off", "guard_and_watchdog_60"):
+        armed = mode != "off"
+        state, step, _, prep = build_step("celeba", ROBUST_BATCH, torch.bfloat16)
+        marks = []
+
+        def on_batch(i, st, metrics, batch):
+            marks.append(torch.cuda.Event(enable_timing=True))
+            marks[-1].record()
+
+        guard = PreemptionGuard().install() if armed else None
+        with tempfile.TemporaryDirectory(prefix="eadgan_cost_") as tmp:
+            trace = os.path.join(tmp, "trace.jsonl")
+            try:
+                with environ(EADGAN_CHAIN_TRACE=trace):
+                    run_epochs(n_epochs=ROBUST_COST_WINDOWS, data=faces, batch_size=ROBUST_BATCH,
+                               state=state, step_fn=step, on_batch=on_batch, device="cuda",
+                               max_steps=CHAIN_WINDOW * ROBUST_COST_WINDOWS, chain=CHAIN_WINDOW,
+                               watchdog=60.0 if armed else 0.0,
+                               stop_event=guard.requested if armed else None,
+                               on_shutdown=lambda *a: None, **prep)
+            finally:
+                if guard is not None:
+                    guard.uninstall()
+            torch.cuda.synchronize()
+            loop = chained_loop_ms(trace)
+        check(guard is None or not guard.requested.is_set(), "the guard saw a signal")
+        windows = [a.elapsed_time(b) / CHAIN_WINDOW for a, b in zip(marks[1:], marks[2:])]
+        record[mode] = {"replayed_ms_cuda_events": statistics.median(windows),
+                        "window_ms_range": [min(windows), max(windows)],
+                        "loop_step_ms_host_clock": loop["loop_step_ms_host_clock"]}
+        del state
+    record["armed_minus_off_ms"] = (record["guard_and_watchdog_60"]["replayed_ms_cuda_events"]
+                                    - record["off"]["replayed_ms_cuda_events"])
+    emit(record)
+    return record
+
+
+def phase_robustness(torch):
+    """(a)-(d); returns the warp's launches on this slice's main path, the
+    stopped run of (a)."""
+    t0 = time.perf_counter()
+    stop = robust_stop_in_process(torch)
+    robust_sigterm_cli(torch)
+    robust_supervised_stall(torch)
+    robust_guard_cost(torch)
+    emit({"robustness_phase_s": time.perf_counter() - t0})
+    return stop["warp_launches"]
+
+
 def main() -> None:
     import torch
 
@@ -1524,9 +1844,13 @@ def main() -> None:
     print("== phase 5: timing", flush=True)
     int8_launches = {k: celeba[k] for k in ("int8_convt", "quantize_int8")}
     kernels = phase_timing(torch, errs, probe, int8_launches)
+    print("== phase 6: robustness (a graceful stop against a run to the same step, the CelebA "
+          "trainer under SIGTERM and --resume auto, a supervised watchdog stall and restart, "
+          "the cost of the guard and the watchdog)", flush=True)
+    warp_by_path["celeba_stop"] = phase_robustness(torch)
     # the warp's paths by the Pallas body the TPU took there: _kernel for
     # C * W > 128 (CelebA, colored dSprites), _kernel_pair otherwise
-    paths = {"warp_affine": ("celeba", "pxy_color", "rp_color", "score_color"),
+    paths = {"warp_affine": ("celeba", "pxy_color", "rp_color", "score_color", "celeba_stop"),
              "warp_affine_pair": ("pxy", "rp", "rp_resumed_bf16", "rp_long", "mnist", "score_gray")}
     check(sorted(p for v in paths.values() for p in v) == sorted(warp_by_path),
           f"warp paths {sorted(warp_by_path)}")

@@ -14,7 +14,7 @@ from __future__ import annotations
 import argparse
 import os
 
-from eadgan_tpu_torch.cli.common import disable_tf32
+from eadgan_tpu_torch.cli.common import disable_tf32, init_multiprocess
 from eadgan_tpu_torch.train.checkpoint import save_model
 from eadgan_tpu_torch.train.config import ApproximatorConfig
 from eadgan_tpu_torch.train.pretrain import init_approximator_state, make_approximator_step
@@ -34,6 +34,7 @@ def main(argv=None) -> None:
     parser.add_argument("--jsonl", type=str, default="")
     opt = parser.parse_args(argv)
     print(opt)
+    init_multiprocess()
     disable_tf32()
     device = platform_device()
 

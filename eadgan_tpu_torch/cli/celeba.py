@@ -8,7 +8,10 @@ every ``sample_interval`` steps and, every ``15 * sample_interval``, an
 atomic ``checkpoint_%d.tar`` with both models plus epoch/batches_done and
 beside it the full train state ``celeba_train_state_%d.ckpt``, which
 ``--resume`` restores (``--keep_states N`` keeps the N newest).
-``--compute bf16`` runs the models in bf16 with float32 parameters.
+``--compute bf16`` runs the models in bf16 with float32 parameters.  On
+SIGTERM it saves the train state at the window's end and exits 86
+(``--preempt_save``); ``--watchdog S`` exits 87 on a stall, for
+``cli.supervise`` to relaunch.
 """
 
 from __future__ import annotations
@@ -22,8 +25,11 @@ from eadgan_tpu_torch.cli.common import (
     add_adam_args,
     add_run_args,
     disable_tf32,
+    exit_if_preempted,
+    init_multiprocess,
     maybe_resume,
     resolve_compute_dtype,
+    setup_preemption,
 )
 from eadgan_tpu_torch.data import load_image_folder
 from eadgan_tpu_torch.ops import warp_affine
@@ -61,6 +67,7 @@ def main(argv=None) -> None:
     add_run_args(parser)
     opt = parser.parse_args(argv)
     print(opt)
+    init_multiprocess()
     disable_tf32()
     device = platform_device()
 
@@ -116,6 +123,13 @@ def main(argv=None) -> None:
             )
             save_train_state(opt.ckpt_dir, STATE_STEM, batches_done, state, keep=opt.keep_states)
 
+    # SIGTERM: finish the window, save the train state at the exact step,
+    # exit 86 (utils/preempt.py; --resume auto continues with no lost step)
+    guard = setup_preemption(opt)
+
+    def on_shutdown(step_now, state):
+        save_train_state(opt.ckpt_dir, STATE_STEM, step_now, state, keep=opt.keep_states)
+
     run_epochs(
         n_epochs=config.n_epochs,
         data=images,
@@ -133,7 +147,12 @@ def main(argv=None) -> None:
         random_flip=True,
         chain=opt.chain,
         chain_periods=(config.sample_interval, config.sample_interval * 15),
+        watchdog=opt.watchdog,
+        profile_dir=opt.profile_dir,
+        stop_event=guard.requested if guard else None,
+        on_shutdown=on_shutdown,
     )
+    exit_if_preempted(guard)
 
 
 if __name__ == "__main__":

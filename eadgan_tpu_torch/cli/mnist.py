@@ -26,8 +26,11 @@ from eadgan_tpu_torch.cli.common import (
     add_adam_args,
     add_run_args,
     disable_tf32,
+    exit_if_preempted,
+    init_multiprocess,
     maybe_resume,
     resolve_compute_dtype,
+    setup_preemption,
 )
 from eadgan_tpu_torch.data.mnist import load_mnist, mnist_archive_present
 from eadgan_tpu_torch.ops import warp_affine
@@ -68,6 +71,7 @@ def main(argv=None) -> None:
     add_run_args(parser)
     opt = parser.parse_args(argv)
     print(opt)
+    init_multiprocess()
     disable_tf32()
     device = platform_device()
 
@@ -128,6 +132,13 @@ def main(argv=None) -> None:
             save_model(os.path.join(opt.ckpt_dir, f"encoder_{batches_done}.pt"), state.e)
             save_train_state(opt.ckpt_dir, STATE_STEM, batches_done, state, keep=opt.keep_states)
 
+    # SIGTERM: finish the window, save the train state at the exact step,
+    # exit 86 (utils/preempt.py; --resume auto continues with no lost step)
+    guard = setup_preemption(opt)
+
+    def on_shutdown(step_now, state):
+        save_train_state(opt.ckpt_dir, STATE_STEM, step_now, state, keep=opt.keep_states)
+
     run_epochs(
         n_epochs=config.n_epochs,
         data=images,
@@ -142,7 +153,12 @@ def main(argv=None) -> None:
         metric_keys=list(METRIC_KEYS),
         chain=opt.chain,
         chain_periods=(config.sample_interval, save_every),
+        watchdog=opt.watchdog,
+        profile_dir=opt.profile_dir,
+        stop_event=guard.requested if guard else None,
+        on_shutdown=on_shutdown,
     )
+    exit_if_preempted(guard)
 
 
 if __name__ == "__main__":

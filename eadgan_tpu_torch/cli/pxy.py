@@ -20,7 +20,15 @@ import os
 
 import torch
 
-from eadgan_tpu_torch.cli.common import add_adam_args, add_run_args, disable_tf32, maybe_resume
+from eadgan_tpu_torch.cli.common import (
+    add_adam_args,
+    add_run_args,
+    disable_tf32,
+    exit_if_preempted,
+    init_multiprocess,
+    maybe_resume,
+    setup_preemption,
+)
 from eadgan_tpu_torch.data import load_dsprites
 from eadgan_tpu_torch.sample.figures import pxy_grids
 from eadgan_tpu_torch.train.checkpoint import save_model, save_train_state
@@ -55,6 +63,7 @@ def align_sample(model, img: torch.Tensor, seed: int, config: PxyConfig):
 def main(argv=None, colored: bool = False) -> None:
     opt = build_parser(colored).parse_args(argv)
     print(opt)
+    init_multiprocess()
     disable_tf32()
     device = platform_device()
 
@@ -88,6 +97,13 @@ def main(argv=None, colored: bool = False) -> None:
                 opt.ckpt_dir, f"{stem}_train_state", batches_done, state, keep=opt.keep_states
             )
 
+    # SIGTERM: finish the window, save the train state at the exact step,
+    # exit 86 (utils/preempt.py; --resume auto continues with no lost step)
+    guard = setup_preemption(opt)
+
+    def on_shutdown(step_now, state):
+        save_train_state(opt.ckpt_dir, f"{stem}_train_state", step_now, state, keep=opt.keep_states)
+
     run_epochs(
         n_epochs=config.n_epochs,
         data=images,
@@ -102,7 +118,12 @@ def main(argv=None, colored: bool = False) -> None:
         metric_keys=["affine_loss"],
         chain=opt.chain,
         chain_periods=(config.sample_interval, save_every),
+        watchdog=opt.watchdog,
+        profile_dir=opt.profile_dir,
+        stop_event=guard.requested if guard else None,
+        on_shutdown=on_shutdown,
     )
+    exit_if_preempted(guard)
 
 
 if __name__ == "__main__":

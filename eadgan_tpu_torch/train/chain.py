@@ -118,6 +118,13 @@ class ChainedStep:
         self.captured_warps = stn_cuda.captured_count - before
         self.graph = graph
 
+    def will_capture(self, windows) -> bool:
+        """Whether a call with these windows captures the graph: on the
+        card, before any capture, unless the call is only the eager first
+        step."""
+        return bool(windows[0].is_cuda and self.graph is None
+                    and (self.warmed or windows[0].shape[0] > 1))
+
     def __call__(self, state, consts, *windows):
         k = windows[0].shape[0]
         if not windows[0].is_cuda:

@@ -41,6 +41,7 @@ __all__ = [
     "cpu_state_dict",
     "save_train_state",
     "restore_train_state",
+    "train_state_payload",
     "restore_latest",
     "saved_steps",
     "latest_step",
@@ -100,7 +101,11 @@ def _fields(state) -> Dict[str, Any]:
     }
 
 
-def _payload(state) -> Dict[str, Any]:
+def train_state_payload(state) -> Dict[str, Any]:
+    """What a train-state file holds: each field of ``state`` copied to
+    the host (models' and optimizers' state_dicts on the CPU, the
+    generator's state, the step).  On the card the copies run on the
+    current stream, after the work already issued there."""
     out = {}
     for name, value in _fields(state).items():
         if isinstance(value, nn.Module):
@@ -235,7 +240,7 @@ def save_train_state(ckpt_dir: str, stem: str, step: int, state, keep: int = 0) 
     ``keep`` newest such files (``keep=0``: all).  The trainers'
     ``--keep_states`` flag routes here."""
     path = os.path.join(ckpt_dir, f"{stem}_{step}.ckpt")
-    save_checkpoint(path, _payload(state))
+    save_checkpoint(path, train_state_payload(state))
     prune_saved(ckpt_dir, stem, keep, current_step=step)
     return path
 

@@ -114,6 +114,10 @@ def run_epochs(
     random_flip: bool = False,
     chain: int = 1,
     chain_periods: tuple = (),
+    watchdog: float = 0.0,
+    stop_event=None,
+    on_shutdown: Optional[Callable] = None,
+    profile_dir: str = "",
 ):
     """The reference's epoch/batch double loop.
 
@@ -132,51 +136,159 @@ def run_epochs(
     the true post-step state.  Every trainer's callback gates itself on
     those intervals, so what it writes is what the per-step engine
     writes.
+
+    ``stop_event`` (a ``threading.Event``; the CLIs pass their SIGTERM
+    guard's, ``utils/preempt.py``) asks for a graceful early stop.  The
+    per-step engine stops after the step in which it sees the flag set;
+    the chained engine at the end of the window in which it sees it,
+    after that window's events are queued.  Then the last window's
+    metrics are drained, the event worker is closed (every queued
+    cadence save is written, so a final save is the newest file and
+    ``checkpoint.prune_saved`` stays anchored on it), and only then
+    ``on_shutdown(final_step, state)`` is called once, with the live
+    state.  On the card the graph's replays wrote that state in place on
+    the current stream, and ``on_shutdown`` runs on the same stream, so
+    its copies to the host are ordered after the last replay
+    (``chip_smoke.py``'s robustness phase checks the state it sees bit
+    for bit against a run that ends at the same step).  After a stop,
+    ``stop_event.cut_short`` says whether the stop cut the schedule short
+    (``final_step`` below the planned end): a stop that lands on a
+    finished schedule is no preemption (``cli/common.py::
+    exit_if_preempted``).
+
+    ``watchdog`` > 0 arms a :class:`~eadgan_tpu_torch.utils.watchdog.
+    Watchdog` of that many seconds.  It is beaten only on progress the
+    device has proven: in the per-step engine once a step's metrics are
+    on the host, in the chained engine once ``drain`` has waited for a
+    window's metrics, and after an inline event (a save on the main
+    thread holds the loop for seconds, and its copies to the host wait
+    for the window).  The window that captures the
+    CUDA graph runs under a grace that its drain releases.
+    ``EADGAN_FAULT_HANG_STEP=N`` (a drill hook) makes the first beat at a
+    step >= N hang forever, as a wedged call would; with
+    ``EADGAN_FAULT_HANG_MARKER=<path>`` the hang creates that file and a
+    process that finds it already there does not hang, so a supervised
+    restart survives.  ``profile_dir`` wraps the run in
+    :func:`~eadgan_tpu_torch.utils.profiler.trace`.
     """
     if random_flip and data.dtype != np.uint8:
         raise ValueError("random_flip requires the uint8 image ingest path")
     if chain < 1:
         raise ValueError(f"chain must be >= 1, got {chain}")
+    from eadgan_tpu_torch.utils.profiler import trace
+
     n_batches = data.shape[0] // batch_size
     start_step = state.step
-    batches_done = start_step
+    total = n_epochs * n_batches
+    planned_end = min(total, start_step + max_steps) if max_steps else total
+    wd = None
+    if watchdog:
+        from eadgan_tpu_torch.utils.watchdog import Watchdog
+
+        wd = Watchdog(watchdog).start()
+    beat, grace, clear_grace = _heartbeat(wd)
+    loop = dict(
+        n_epochs=n_epochs, data=data, batch_size=batch_size, state=state, step_fn=step_fn,
+        on_batch=on_batch, device=torch.device(device), seed=seed, max_steps=max_steps,
+        logger=logger, metric_keys=metric_keys, scale=scale, shift=shift,
+        random_flip=random_flip, beat=beat, stop_event=stop_event,
+    )
     try:
-        if chain > 1:
-            return _run_epochs_chained(
-                n_epochs=n_epochs, data=data, batch_size=batch_size, state=state,
-                step_fn=step_fn, on_batch=on_batch, device=torch.device(device), seed=seed,
-                max_steps=max_steps, logger=logger, metric_keys=metric_keys, scale=scale,
-                shift=shift, random_flip=random_flip, chain=chain, chain_periods=chain_periods,
-            )
-        for epoch, host in epoch_batches(
-            data, batch_size, n_epochs, seed=seed, start_step=start_step,
-            scale=scale, shift=shift, random_flip=random_flip,
-        ):
-            batch = torch.from_numpy(host).to(device)
-            state, metrics = step_fn(state, batch)
-            if logger is not None:
-                shown = {k: metrics[k] for k in metric_keys} if metric_keys else metrics
-                logger.log(
-                    batches_done,
-                    shown,
-                    epoch=epoch,
-                    n_epochs=n_epochs,
-                    batch=batches_done % n_batches,
-                    n_batches=n_batches,
-                )
-            on_batch(batches_done, state, metrics, (batch,))
-            batches_done += 1
-            if max_steps and batches_done - start_step >= max_steps:
-                break
+        with trace(profile_dir or None):
+            if chain > 1:
+                state = _run_epochs_chained(**loop, chain=chain, chain_periods=chain_periods,
+                                            grace=grace, clear_grace=clear_grace)
+            else:
+                state = _run_epochs_per_step(**loop, verify_progress=wd is not None)
+            if stop_event is not None and stop_event.is_set():
+                final_step = state.step
+                stop_event.cut_short = final_step < planned_end
+                if on_shutdown is not None:
+                    print(f"graceful shutdown: saving final train state at step {final_step}",
+                          flush=True)
+                    if wd is not None:
+                        wd.grace()  # the save's seconds are no stall
+                    t0 = time.perf_counter()
+                    on_shutdown(final_step, state)
+                    print(f"graceful shutdown: final train state saved in "
+                          f"{time.perf_counter() - t0:.3f} s", flush=True)
     finally:
+        if wd is not None:
+            wd.stop()
         if logger is not None:
             logger.close()
     return state
 
 
+def _heartbeat(wd):
+    """``(beat, grace, clear_grace)`` of the watchdog ``wd`` (no-ops
+    without one), ``beat`` wrapped by the ``EADGAN_FAULT_HANG_STEP`` /
+    ``EADGAN_FAULT_HANG_MARKER`` drill hook (see :func:`run_epochs`)."""
+    beat = wd.beat if wd is not None else (lambda step: None)
+    grace = wd.grace if wd is not None else (lambda: None)
+    clear_grace = wd.clear_grace if wd is not None else (lambda: None)
+    hang_at = int(os.environ.get("EADGAN_FAULT_HANG_STEP", 0) or 0)
+    marker = os.environ.get("EADGAN_FAULT_HANG_MARKER", "")
+    if hang_at and marker and os.path.exists(marker):
+        hang_at = 0
+    if hang_at:
+        inner = beat
+
+        def beat(step):
+            if step >= hang_at:
+                if marker:
+                    open(marker, "w").close()
+                print(f"fault injection: hanging at step {step}", flush=True)
+                while True:
+                    time.sleep(3600)
+            inner(step)
+
+    return beat, grace, clear_grace
+
+
+def _run_epochs_per_step(
+    *, n_epochs, data, batch_size, state, step_fn, on_batch, device, seed, max_steps, logger,
+    metric_keys, scale, shift, random_flip, beat, stop_event, verify_progress,
+):
+    """One eagerly launched step a batch, each batch gathered on the host
+    (:func:`epoch_batches`).  With ``verify_progress`` (a watchdog is
+    armed) each step's metrics are copied to the host before the beat,
+    which proves the device finished the step."""
+    n_batches = data.shape[0] // batch_size
+    start_step = state.step
+    batches_done = start_step
+    for epoch, host in epoch_batches(
+        data, batch_size, n_epochs, seed=seed, start_step=start_step,
+        scale=scale, shift=shift, random_flip=random_flip,
+    ):
+        batch = torch.from_numpy(host).to(device)
+        state, metrics = step_fn(state, batch)
+        if logger is not None:
+            shown = {k: metrics[k] for k in metric_keys} if metric_keys else metrics
+            logger.log(
+                batches_done,
+                shown,
+                epoch=epoch,
+                n_epochs=n_epochs,
+                batch=batches_done % n_batches,
+                n_batches=n_batches,
+            )
+        on_batch(batches_done, state, metrics, (batch,))
+        batches_done += 1
+        if verify_progress:
+            torch.stack([torch.as_tensor(v).float().reshape(()) for v in metrics.values()]).cpu()
+        beat(batches_done)
+        if stop_event is not None and stop_event.is_set():
+            break
+        if max_steps and batches_done - start_step >= max_steps:
+            break
+    return state
+
+
 def _run_epochs_chained(
     *, n_epochs, data, batch_size, state, step_fn, on_batch, device, seed, max_steps,
-    logger, metric_keys, scale, shift, random_flip, chain, chain_periods,
+    logger, metric_keys, scale, shift, random_flip, chain, chain_periods, beat, grace,
+    clear_grace, stop_event,
 ):
     """Windows of up to ``chain`` steps through a :class:`~eadgan_tpu_torch.
     train.chain.ChainedStep` of ``step_fn``, after
@@ -211,7 +323,11 @@ def _run_epochs_chained(
     completed.  The worker is closed in a ``finally``: every queued
     checkpoint is written, or its error raised, before the engine
     returns.  A graph capture must not overlap the worker's device work,
-    so the engine waits for the worker before the window that captures.
+    so the engine waits for the worker before the window that captures;
+    that window also runs under the watchdog's ``grace``, which its
+    drain releases.  ``beat`` is called with a window's end once its
+    metrics are on the host, and after an inline event; ``stop_event``
+    is polled at the end of each window.
     Without periods, or with ``EADGAN_SYNC_EVENTS=1``, ``on_batch`` runs
     inline with the live state and lazily fetched metrics.
 
@@ -255,9 +371,10 @@ def _run_epochs_chained(
     worker = EventWorker() if async_events else None
     event_stream = torch.cuda.Stream(device) if worker is not None and on_card else None
     pending = None  # the previous window: (start, k, epoch, host metrics, ready event)
+    grace_end = None  # the end of the window that captures, while in flight
 
     def drain():
-        nonlocal pending
+        nonlocal pending, grace_end
         if pending is None:
             return
         ps, pk, pepoch, host, ready = pending
@@ -273,12 +390,17 @@ def _run_epochs_chained(
                     ps + i, {keys[j]: rows[i, j] for j in shown}, epoch=pepoch,
                     n_epochs=n_epochs, batch=(ps + i) % n_batches, n_batches=n_batches,
                 )
+        if grace_end is not None and ps + pk >= grace_end:
+            grace_end = None
+            clear_grace()  # the captured graph ran: the steady timeout governs
+        beat(ps + pk)  # the device finished the window
 
     s = start_step
     epoch = s // max(n_batches, 1)
     t_prev = time.perf_counter()
+    stopping = False
     try:
-        while epoch < n_epochs and s < stop:
+        while epoch < n_epochs and s < stop and not stopping:
             perm = host_rng.permutation(n_rows)
             epoch_end = min((epoch + 1) * n_batches, stop)
             first = s
@@ -291,8 +413,11 @@ def _run_epochs_chained(
                     window.append(to_device(np.stack(
                         [flip_rng.random(batch_size) < 0.5 for _ in range(k)]
                     )))
-                if worker is not None and on_card and chained.graph is None:
-                    worker.flush()  # the next window may capture
+                if chained.will_capture(window):
+                    if worker is not None:
+                        worker.flush()
+                    grace()
+                    grace_end = ws + k
                 t0 = time.perf_counter()
                 state, stacked = chained(state, consts, *window)
                 state.step = ws + k
@@ -325,6 +450,10 @@ def _run_epochs_chained(
                     else:
                         on_batch(ws + k - 1, state,
                                  LazyLastMetrics(chained.resolved_pack_keys, stacked), (batch,))
+                        if is_event:
+                            # an inline save holds the loop for seconds, and
+                            # its copies to the host prove the window ran
+                            beat(ws + k)
                 t3 = time.perf_counter()
                 if trace is not None:
                     trace.write(json.dumps({
@@ -332,6 +461,9 @@ def _run_epochs_chained(
                         "drain": t2 - t1, "cb": t3 - t2,
                     }) + "\n")
                 t_prev = t3
+                if stop_event is not None and stop_event.is_set():
+                    stopping = True
+                    break
             s = epoch_end
             epoch += 1
         drain()

@@ -19,12 +19,16 @@ resident dataset as the CLIs' graph does, timed a window at a time
 and profiled over one window.  ``--tf32``
 allows TF32 in convolutions and matrix products (off by default, as in
 ``chip_smoke.py``).  Needs a CUDA card.
+
+:func:`trace` is the trainers' ``--profile_dir``: a ``torch.profiler``
+trace of a whole run, exported as a Chrome trace.
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import json
 import os
 import statistics
@@ -58,7 +62,7 @@ from eadgan_tpu_torch.train.pretrain import (
     pxy_encoder,
 )
 
-__all__ = ["PIPELINES", "STEPS", "build_step", "first_batch", "step_args", "chained_replays",
+__all__ = ["trace", "PIPELINES", "STEPS", "build_step", "first_batch", "step_args", "chained_replays",
            "profile_step", "sprite_warp_inputs", "mnist_warp_inputs"]
 
 # the pipelines whose step trains on a dataset (run_epochs drives them)
@@ -67,6 +71,32 @@ PIPELINES = ("celeba", "pxy", "pxy_color", "rp", "rp_color", "mnist")
 STEPS = PIPELINES + ("approximator",)
 
 _WARP_KERNEL = "warp_affine_kernel"
+
+
+@contextlib.contextmanager
+def trace(log_dir):
+    """``torch.profiler`` trace of the code inside, exported as a Chrome
+    trace (``trace_<pid>.json``, open it in Perfetto or chrome://tracing)
+    into ``log_dir``; a no-op when ``log_dir`` is None or empty.  It
+    records CPU activity, and CUDA activity when a card is present.
+    CUPTI records a CUDA graph's replay as one graph launch: in a
+    chained run's trace each replayed step is one ``cudaGraphLaunch`` on
+    the host, with no per-kernel launch call or operator beneath it,
+    while the graph's kernels still appear on the device's timeline
+    (``profile_step`` counts them).  The profiler keeps every event of
+    the run in memory until the export: trace a short run."""
+    if not log_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(log_dir, f"trace_{os.getpid()}.json"))
 
 
 def build_step(pipeline: str, batch_size: int = 128, dtype=None, device="cuda"):

@@ -37,6 +37,10 @@ warp's launches are counted per replay.  A train state saved by a chained CLI ru
 chained engine's events run on its worker against snapshots of the
 state, which later replays leave as they were: a callback that sleeps
 and then reads its state reads the per-step engine's values, bit for bit.
+A graceful stop (``stop_event`` set by an inline event, CelebA and gray
+rp at batch 16 in windows of 4) hands ``on_shutdown`` the train state of
+a ``max_steps`` run to the same step, bit for bit
+(``tools/stop_check.py``).
 
 The int8 generator's kernels: ``int8_convt`` bit-equal to
 ``int8_convt_relu_plain`` (int32 sums exact on both sides, the same three
@@ -317,6 +321,20 @@ def test_chained_step_matches_per_step(cuda, pipeline):
     report = run_check(pipeline, steps=8, chain=4, batch=16)
     assert report["ok"], report
     assert report["spread"] == report["err"] == 0 and report["event_steps"] == [0, 4]
+
+
+@pytest.mark.parametrize("pipeline", ["celeba", "rp"])
+def test_graceful_stop_equals_a_run_to_the_same_step(cuda, pipeline):
+    """A stop requested by an inline event mid-run (``run_epochs`` chained
+    on the card) leaves, as ``on_shutdown`` copies it to the host, the
+    train state of a ``max_steps`` run to the same step, bit for bit
+    (``tools/stop_check.py``, cuDNN deterministic), at that window's end."""
+    from eadgan_tpu_torch.tools.stop_check import run_stop_check
+
+    report = run_stop_check(pipeline, batch=16, chain=4, stop_at=5, n_images=256)
+    assert report["ok"], report
+    assert report["stopped_at"] == 8
+    assert report["warp_launches"] == report["stopped_at"] * (1 if pipeline == "celeba" else 3)
 
 
 def test_warp_launches_counted_per_replay(cuda):

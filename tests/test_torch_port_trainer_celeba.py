@@ -49,10 +49,25 @@ def test_cli_trains_on_cpu(tmp_path, monkeypatch):
             assert (tmp_path / "images" / name / f"{step}.png").is_file(), (name, step)
 
 
+# the run flags ported since these tests were written, with valid values
+PORTED_FLAGS = {"--profile_dir": ["trace"], "--preempt_save": ["off"], "--watchdog": ["1"],
+                "--no_download": []}
+
+
 @pytest.mark.parametrize("flag", ["--profile_dir", "--zero_opt", "--preempt_save", "--watchdog"])
-def test_cli_rejects_later_slice_flags(flag, capsys):
-    with pytest.raises(SystemExit):
-        cli.main([flag, "1"])
+def test_cli_rejects_later_slice_flags(flag, capsys, monkeypatch):
+    """Argparse rejects the flags of a later slice of the port (scale-out's
+    ``--data_parallel`` and ``--zero_opt``, exit 2).  The run flags ported
+    since (``--profile_dir``, ``--preempt_save``, ``--watchdog``,
+    ``--no_download``) are accepted: with a multi-process rank environment
+    the CLI then stops at its refusal of it, before the card."""
+    monkeypatch.setenv("EADGAN_MP_NUM_PROCESSES", "2")
+    with pytest.raises(SystemExit) as e:
+        cli.main([flag, *PORTED_FLAGS.get(flag, ["1"])])
+    if flag in PORTED_FLAGS:
+        assert "multi-process" in str(e.value.code)
+    else:
+        assert e.value.code == 2
 
 
 @pytest.mark.parametrize("max_steps,start", [(0, 0), (5, 0), (4, 3)])

@@ -165,11 +165,26 @@ def test_batch_sequence_of_3d_data_matches_jax_engine(max_steps, start):
         np.testing.assert_array_equal(a, b)
 
 
+# the run flags ported since these tests were written, with valid values
+PORTED_FLAGS = {"--profile_dir": ["trace"], "--preempt_save": ["off"], "--watchdog": ["1"],
+                "--no_download": []}
+
+
 @pytest.mark.parametrize("cli", [pxy, pxy_color, rp, rp_color], ids=lambda m: m.__name__.rsplit(".", 1)[-1])
 @pytest.mark.parametrize("flag", ["--profile_dir", "--data_parallel", "--zero_opt", "--preempt_save", "--watchdog"])
-def test_cli_rejects_later_slice_flags(cli, flag):
-    with pytest.raises(SystemExit):
-        cli.main([flag, "1"])
+def test_cli_rejects_later_slice_flags(cli, flag, monkeypatch):
+    """Argparse rejects the flags of a later slice of the port (scale-out's
+    ``--data_parallel`` and ``--zero_opt``, exit 2).  The run flags ported
+    since (``--profile_dir``, ``--preempt_save``, ``--watchdog``,
+    ``--no_download``) are accepted: with a multi-process rank environment
+    the CLI then stops at its refusal of it, before the card."""
+    monkeypatch.setenv("EADGAN_MP_NUM_PROCESSES", "2")
+    with pytest.raises(SystemExit) as e:
+        cli.main([flag, *PORTED_FLAGS.get(flag, ["1"])])
+    if flag in PORTED_FLAGS:
+        assert "multi-process" in str(e.value.code)
+    else:
+        assert e.value.code == 2
 
 
 @pytest.mark.parametrize("lr", [None, 3e-4], ids=["default_lr", "lr_3e-4"])
