@@ -3,7 +3,7 @@
 NVIDIA H100.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It needs one
-CUDA card and the CUDA toolkit (nvcc) and runs six phases, failing with
+CUDA card and the CUDA toolkit (nvcc) and runs seven phases, failing with
 a non-zero exit on the first that fails:
 
 1. environment: card name and power limit, torch/CUDA versions, TF32
@@ -115,7 +115,25 @@ a non-zero exit on the first that fails:
    thread stacks, the relaunch with ``--resume auto``, exit 0 (the
    seconds from the relaunch to the first logged step); (d) the replayed
    bf16 step through ``run_epochs`` without, then with, the SIGTERM guard
-   armed and a 60 s watchdog.
+   armed and a 60 s watchdog;
+7. data-parallel training (``parallel/``): (a) the CelebA bf16 chained
+   trainer through ``run_epochs`` in a NCCL group of one, 64 steps at
+   batch 128 from copies of one state under deterministic cuDNN, plain,
+   ``data_parallel`` (gradient, BatchNorm and metric all-reduces captured
+   in the CUDA graph) and ``data_parallel`` + ``zero_opt``: every logged
+   loss and state tensor bit-equal, the all-reduces a step and the
+   replayed step of each form (``tools/dp_check.py``); two NCCL ranks on
+   the one card refused before either joins, and the chained engine
+   refused in a gloo group on the card; (b) two gray rp ranks sharing the
+   card over gloo (``EADGAN_DIST_BACKEND=gloo``), ``cli.supervise --ranks
+   2 rp -- --data_parallel --chain 1 --compute f32`` at batch 128, 8
+   steps, against one rank at the same global batch (losses within the
+   CPU tests' tolerance, rank 1's warp launches exactly 3 a step, rank 0
+   alone logging, rendering and saving), then SIGTERM to rank 1 alone of
+   a gang started directly: both exit 86 at one step with one final train
+   state, which ``--resume auto`` continues in one process.  The
+   data-parallel runs' warp launches are the paths ``celeba_dp`` and
+   ``rp_gang`` of the ``kernels`` line.
 
 Its last lines are the ``{"kernels": [...]}`` record, the ``nvidia-smi``
 name/power-limit line, and ``{"ok": true, "device": {...}}``.
@@ -772,8 +790,8 @@ def phase_trainer(torch):
         stn_cuda.reset_launch_count()  # counts from here read the main path only
         t0 = time.perf_counter()
         with environ(EADGAN_CHAIN_TRACE=trace):
-            run_module(torch, module, common + ["--max_steps", str(total), "--sample_interval",
-                                                str(total), "--jsonl", jsonl])
+            run_module(torch, module, common + ["--compute", "f32", "--max_steps", str(total),
+                                                "--sample_interval", str(total), "--jsonl", jsonl])
         wall = time.perf_counter() - t0
         launches = stn_cuda.launch_count
         chained = chained_loop_ms(trace)
@@ -946,7 +964,8 @@ def phase_mnist_trainers(torch):
         t0 = time.perf_counter()
         with environ(EADGAN_CHAIN_TRACE=trace):
             run_module(torch, "eadgan_tpu_torch.cli.mnist", [
-                "--batch_size", "128", "--n_epochs", "2", "--max_steps", str(MNIST_STEPS),
+                "--batch_size", "128", "--compute", "f32", "--n_epochs", "2",
+                "--max_steps", str(MNIST_STEPS),
                 "--sample_interval", str(MNIST_STEPS), "--approximator", approx_file,
                 "--data_dir", tmp, "--out_dir", os.path.join(tmp, "images"), "--ckpt_dir", tmp,
                 "--jsonl", jsonl])
@@ -1092,7 +1111,8 @@ def phase_dsprites_trainers(torch):
 
         rp_args = ["--encoder_pxy", pxy_file, "--n_epochs", "5", "--keep_states", "1"]
         run("rp", "eadgan_tpu_torch.cli.rp", RP_STEPS, 3, RP_GRID_WARPS,
-            rp_args + ["--max_steps", str(RP_STEPS), "--sample_interval", str(RP_STEPS)], RP_KEYS)
+            rp_args + ["--compute", "f32", "--max_steps", str(RP_STEPS),
+                       "--sample_interval", str(RP_STEPS)], RP_KEYS)
         grids("rp", rp_grids)
         for name in ("encoder_0.pt", "generator_0.pt"):
             check(os.path.isfile(os.path.join(tmp, name)), name)
@@ -1108,14 +1128,16 @@ def phase_dsprites_trainers(torch):
         color_file = os.path.join(tmp, "encoder_pxy_color_0.pt")
         check(os.path.isfile(color_file), "encoder_pxy_color_0.pt")
         run("rp_color", "eadgan_tpu_torch.cli.rp_color", 10, 3, 2,
-            ["--encoder_pxy", color_file, "--max_steps", "10", "--sample_interval", "10"], RP_KEYS)
+            ["--encoder_pxy", color_file, "--compute", "f32", "--max_steps", "10",
+             "--sample_interval", "10"], RP_KEYS)
         grids("rp_color", rp_grids)
         score("score_color", True, color_file)
 
         with environ(EADGAN_SYNTH_POS="8"):
             long_dir = os.path.join(tmp, "long")
             run("rp_long", "eadgan_tpu_torch.cli.rp", RP_LONG_STEPS, 3, RP_GRID_WARPS,
-                ["--encoder_pxy", pxy_file, "--n_epochs", "3", "--sample_interval", "1000",
+                ["--encoder_pxy", pxy_file, "--compute", "f32", "--n_epochs", "3",
+                 "--sample_interval", "1000",
                  "--data_dir", long_dir, "--ckpt_dir", long_dir], RP_KEYS)
     for record in out:
         emit(record)
@@ -1647,8 +1669,8 @@ def robust_sigterm_cli(torch):
         for ws, k in plan_windows(e * n_batches, n_batches, 32, (4000, 60000), ROBUST_STEPS):
             ends.add(ws + k)
     with tempfile.TemporaryDirectory(prefix="eadgan_robust_") as tmp:
-        common = [sys.executable, "-m", module, "--batch_size", str(ROBUST_BATCH), "--data_dir", tmp,
-                  "--out_dir", os.path.join(tmp, "images"), "--ckpt_dir", tmp]
+        common = [sys.executable, "-m", module, "--batch_size", str(ROBUST_BATCH), "--compute", "f32",
+                  "--data_dir", tmp, "--out_dir", os.path.join(tmp, "images"), "--ckpt_dir", tmp]
         t_start = time.perf_counter()
         with Child(common + ["--max_steps", str(ROBUST_STEPS)], robust_env()) as child:
             _, t_seen, seen = child.wait_line(
@@ -1812,6 +1834,203 @@ def phase_robustness(torch):
     emit({"robustness_phase_s": time.perf_counter() - t0})
     return stop["warp_launches"]
 
+# --- phase 7: data-parallel training ------------------------------------------
+
+DP_STEPS, DP_CHAIN = 64, 32  # (a): CelebA bf16 at batch 128, windows of 32 replays
+GANG_BATCH, GANG_STEPS = 128, 8  # (b): the gray rp gang's global batch and steps
+# logged losses of the two-rank gang against one rank at the same global
+# batch, as tests/test_torch_port_multiprocess.py states them: step 0, after
+GANG_RTOL0, GANG_RTOL = 1e-5, 1e-3
+
+
+def dp_world1(torch):
+    """(a) The CelebA bf16 chained trainer through ``run_epochs`` in a NCCL
+    group of one, 64 steps at batch 128 from copies of one state under
+    deterministic cuDNN, plain, ``data_parallel`` and ``data_parallel`` +
+    ``zero_opt``: every logged loss and state tensor bit-equal, the
+    all-reduces a step, the replayed step of each form and what a traced
+    window of each adds by kernel (``tools/dp_check.py``).  The
+    data-parallel runs' warp launches (one a step, counted from 0 before
+    each run) are the path ``celeba_dp``."""
+    from eadgan_tpu_torch.tools.dp_check import run_dp_check
+
+    report = run_dp_check("celeba", torch.bfloat16, steps=DP_STEPS, chain=DP_CHAIN, batch=128,
+                          profile=True)
+    emit({"dp_world1": report})
+    check(report["backend"] == "nccl", f"the group of one runs {report['backend']}")
+    check(report["ok"], f"data-parallel and ZeRO runs against the plain one: {report}")
+    return report["warp_launches"]["dp"] + report["warp_launches"]["zero"], report
+
+
+def dp_refusals(torch):
+    """Two NCCL ranks on the one card raise before either joins; in a gloo
+    group on the card the chained engine (a graph capture) raises."""
+    import torch.distributed as dist
+
+    from eadgan_tpu_torch.parallel import join_local, multihost
+    from eadgan_tpu_torch.train.engine import run_epochs
+    from eadgan_tpu_torch.utils.profiler import build_step
+
+    check(not dist.is_initialized(), "a process group is still joined")
+    refused = {}
+    with environ(EADGAN_DIST_BACKEND=""):
+        for rank in (0, 1):
+            try:
+                multihost.initialize("localhost:1", 2, rank, device="cuda")
+            except RuntimeError as e:
+                refused[rank] = str(e)
+    check(sorted(refused) == [0, 1] and all("NCCL cannot run two ranks on one card" in m
+                                            for m in refused.values()),
+          f"two NCCL ranks on one card: {refused}")
+    check(not dist.is_initialized(), "a refused rank joined")
+    with environ(EADGAN_DIST_BACKEND="gloo"):
+        join_local("cuda")
+        try:
+            check(multihost.backend() == "gloo", "EADGAN_DIST_BACKEND=gloo")
+            state, step, data, prep = build_step("rp", 8)
+            try:
+                run_epochs(n_epochs=1, data=data, batch_size=8, state=state, step_fn=step,
+                           on_batch=None, device="cuda", max_steps=2, chain=32,
+                           data_parallel=True, **prep)
+                gloo_capture = None
+            except ValueError as e:
+                gloo_capture = str(e)
+        finally:
+            dist.destroy_process_group()
+    check(gloo_capture is not None and "cannot be captured" in gloo_capture,
+          f"gloo --chain 32 on the card: {gloo_capture}")
+    record = {"dp_refusals": {"nccl_shared_card": refused, "gloo_chain_32": gloo_capture}}
+    emit(record)
+    return record
+
+
+def _gang_reports(directory):
+    """The warp launches each rank of a gang wrote at exit
+    (``EADGAN_LAUNCH_REPORT``), by rank."""
+    out = {}
+    for name in os.listdir(directory):
+        if name.startswith("warp_launches."):
+            with open(os.path.join(directory, name)) as f:
+                rec = json.load(f)
+            if rec["rank"] != "":  # not the supervisor
+                out[int(rec["rank"])] = rec["launches"]
+    return out
+
+
+def dp_gang(torch):
+    """(b) Two ranks sharing the card over gloo: ``cli.supervise --ranks 2
+    rp -- --data_parallel --chain 1 --compute f32`` at batch 128 for 8
+    steps against one rank at the same global batch (losses within the CPU
+    tests' tolerance; rank 0 alone logs, renders and saves: rank 1
+    launched the warp exactly 3 a step, no grid's); then the gang-stop
+    drill, the two ranks started directly: SIGTERM to rank 1 alone, both
+    exit 86 at one step S with one final train-state file, which
+    ``--resume auto`` continues in one process.  The gang's warp launches
+    (each rank on its slice) are the path ``rp_gang``."""
+    import signal
+
+    from eadgan_tpu_torch.cli.supervise import _free_port
+    from eadgan_tpu_torch.ops import stn_cuda
+    from eadgan_tpu_torch.train.checkpoint import saved_steps
+
+    record = {"dp_gang": "rp", "ranks": 2, "backend": "gloo", "batch_size": GANG_BATCH, "compute": "f32",
+              "chain": 1, "steps": GANG_STEPS}
+    with tempfile.TemporaryDirectory(prefix="eadgan_gang_") as tmp:
+        reports = os.path.join(tmp, "reports")
+        os.makedirs(reports)
+        rp_argv = ["--allow_fresh_pxy", "--batch_size", str(GANG_BATCH), "--chain", "1", "--compute", "f32",
+                   "--sample_interval", str(GANG_STEPS), "--data_dir", tmp]
+        gang_dir, one_dir = os.path.join(tmp, "gang"), os.path.join(tmp, "one")
+        env = robust_env(EADGAN_SYNTH_POS="3", EADGAN_DIST_BACKEND="gloo",
+                         EADGAN_LAUNCH_REPORT=reports)
+        argv = [sys.executable, "-m", "eadgan_tpu_torch.cli.supervise", "--ranks", "2", "rp", "--",
+                *rp_argv, "--max_steps", str(GANG_STEPS), "--data_parallel",
+                "--out_dir", os.path.join(gang_dir, "images"), "--ckpt_dir", gang_dir,
+                "--jsonl", os.path.join(gang_dir, "gang.jsonl")]
+        t0 = time.perf_counter()
+        with Child(argv, env) as child:
+            rc = child.wait(timeout=300)
+            out, err = child.text("out"), child.text("err")
+        record["gang_wall_s"] = time.perf_counter() - t0
+        check(rc == 0, f"the two-rank gang: exit {rc}, stderr tail {err[-3000:]}")
+        check("x2 ranks" in out, "the supervisor launched no gang")
+        by_rank = _gang_reports(reports)
+        check(by_rank == {0: 3 * GANG_STEPS + RP_GRID_WARPS, 1: 3 * GANG_STEPS},
+              f"the ranks' warp launches {by_rank}: rank 0 renders the step-0 grid alone")
+        gang = read_records(os.path.join(gang_dir, "gang.jsonl"), RP_KEYS)
+        check([r["step"] for r in gang] == list(range(GANG_STEPS)), "gang: one log, rank 0's")
+        check(saved_steps(gang_dir, "rp_train_state") == [0], "gang: one train state, step 0")
+
+        stn_cuda.reset_launch_count()
+        with environ(EADGAN_PLATFORM="cuda", EADGAN_SYNTH_POS="3"):
+            run_module(torch, "eadgan_tpu_torch.cli.rp", [
+                *rp_argv, "--max_steps", str(GANG_STEPS), "--out_dir", os.path.join(one_dir, "images"),
+                "--ckpt_dir", one_dir, "--jsonl", os.path.join(one_dir, "one.jsonl")])
+        one = read_records(os.path.join(one_dir, "one.jsonl"), RP_KEYS)
+        worst = [max(abs(g[k] - o[k]) / abs(o[k]) for k in RP_KEYS) for g, o in zip(gang, one)]
+        record.update({"rel_diff_by_step": worst, "rtol": [GANG_RTOL0, GANG_RTOL],
+                       "warp_launches_by_rank": by_rank, "one_rank_warp_launches": stn_cuda.launch_count})
+        check(len(one) == GANG_STEPS and worst[0] <= GANG_RTOL0 and max(worst) <= GANG_RTOL,
+              f"the gang against one rank at batch {GANG_BATCH}: {worst}")
+
+        # the gang-stop drill
+        drill_dir = os.path.join(tmp, "drill")
+        port = str(_free_port())
+        ranks = []
+        common = [sys.executable, "-m", "eadgan_tpu_torch.cli.rp", *rp_argv, "--max_steps", "2000",
+                  "--data_parallel", "--out_dir", os.path.join(drill_dir, "images"),
+                  "--ckpt_dir", drill_dir]
+        with contextlib.ExitStack() as stack:
+            for r in range(2):
+                ranks.append(stack.enter_context(Child(common, robust_env(
+                    EADGAN_SYNTH_POS="8", EADGAN_DIST_BACKEND="gloo", EADGAN_MP_PROCESS_ID=str(r),
+                    EADGAN_MP_NUM_PROCESSES="2", EADGAN_MP_COORDINATOR=f"localhost:{port}"))))
+            ranks[0].wait_line(lambda l: logged_step(l, 3840 // GANG_BATCH) >= 0, timeout=300)
+            t_sig = time.perf_counter()
+            ranks[1].proc.send_signal(signal.SIGTERM)
+            rcs = [c.wait(timeout=180) for c in ranks]
+            t_exit = time.perf_counter()
+            outs = [c.text("out") for c in ranks]
+            errs = [c.text("err") for c in ranks]
+        check(rcs == [86, 86], f"gang stop: exits {rcs}, stderr tails {[e[-2000:] for e in errs]}")
+        saving = [l for l in outs[0].splitlines()
+                  if l.startswith("graceful shutdown: saving final train state at step ")]
+        stopped = [l for l in outs[1].splitlines()
+                   if l.startswith("graceful shutdown: rank 1 stopped at step ")]
+        check(len(saving) == len(stopped) == 1, f"stop lines {saving} {stopped}")
+        s0, s1 = int(saving[0].rsplit(" ", 1)[1]), int(stopped[0].rsplit(" ", 1)[1])
+        check(s0 == s1 > 0, f"the ranks stopped at steps {s0} and {s1}")
+        check(saved_steps(drill_dir, "rp_train_state") == [s0, 0],
+              f"drill train states {saved_steps(drill_dir, 'rp_train_state')}")
+        jsonl = os.path.join(drill_dir, "resumed.jsonl")
+        with environ(EADGAN_PLATFORM="cuda", EADGAN_SYNTH_POS="8"):
+            run_module(torch, "eadgan_tpu_torch.cli.rp", [
+                *rp_argv, "--resume", "auto", "--max_steps", "4", "--out_dir",
+                os.path.join(drill_dir, "images"), "--ckpt_dir", drill_dir, "--jsonl", jsonl])
+        resumed = [r["step"] for r in read_records(jsonl, RP_KEYS)]
+        check(resumed == list(range(s0, s0 + 4)), f"--resume auto after the gang stop: {resumed}")
+        record.update({"drill_stopped_at": s0, "drill_exits": rcs,
+                       "drill_sigterm_to_exits_s": t_exit - t_sig, "drill_resumed_steps": resumed})
+    emit(record)
+    return sum(by_rank.values()), record
+
+
+def phase_data_parallel(torch):
+    """(a), the refusals, (b); returns the warp's launches on the two new
+    paths."""
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    try:
+        celeba_dp, _ = dp_world1(torch)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    dp_refusals(torch)
+    rp_gang, _ = dp_gang(torch)
+    emit({"data_parallel_phase_s": time.perf_counter() - t0})
+    return {"celeba_dp": celeba_dp, "rp_gang": rp_gang}
+
 
 def main() -> None:
     import torch
@@ -1848,10 +2067,16 @@ def main() -> None:
           "trainer under SIGTERM and --resume auto, a supervised watchdog stall and restart, "
           "the cost of the guard and the watchdog)", flush=True)
     warp_by_path["celeba_stop"] = phase_robustness(torch)
+    print("== phase 7: data-parallel training (CelebA bf16 in a NCCL group of one, plain vs "
+          "data-parallel vs ZeRO-1, bit for bit and timed; the shared-card refusals; two gray rp "
+          "ranks sharing the card over gloo against one rank, and their gang stop)", flush=True)
+    warp_by_path.update(phase_data_parallel(torch))
     # the warp's paths by the Pallas body the TPU took there: _kernel for
     # C * W > 128 (CelebA, colored dSprites), _kernel_pair otherwise
-    paths = {"warp_affine": ("celeba", "pxy_color", "rp_color", "score_color", "celeba_stop"),
-             "warp_affine_pair": ("pxy", "rp", "rp_resumed_bf16", "rp_long", "mnist", "score_gray")}
+    paths = {"warp_affine": ("celeba", "pxy_color", "rp_color", "score_color", "celeba_stop",
+                             "celeba_dp"),
+             "warp_affine_pair": ("pxy", "rp", "rp_resumed_bf16", "rp_long", "mnist", "score_gray",
+                                  "rp_gang")}
     check(sorted(p for v in paths.values() for p in v) == sorted(warp_by_path),
           f"warp paths {sorted(warp_by_path)}")
     for k in kernels:

@@ -34,9 +34,8 @@ def main(argv=None) -> None:
     parser.add_argument("--jsonl", type=str, default="")
     opt = parser.parse_args(argv)
     print(opt)
-    init_multiprocess()
     disable_tf32()
-    device = platform_device()
+    device = init_multiprocess(opt, platform_device)
 
     config = ApproximatorConfig(iterations=opt.iterations, batch_size=opt.batch_size, lr=opt.lr)
     state = init_approximator_state(config, device=device, seed=opt.seed)

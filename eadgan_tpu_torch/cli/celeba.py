@@ -8,10 +8,14 @@ every ``sample_interval`` steps and, every ``15 * sample_interval``, an
 atomic ``checkpoint_%d.tar`` with both models plus epoch/batches_done and
 beside it the full train state ``celeba_train_state_%d.ckpt``, which
 ``--resume`` restores (``--keep_states N`` keeps the N newest).
-``--compute bf16`` runs the models in bf16 with float32 parameters.  On
-SIGTERM it saves the train state at the window's end and exits 86
-(``--preempt_save``); ``--watchdog S`` exits 87 on a stall, for
-``cli.supervise`` to relaunch.
+``--compute bf16`` runs the models in bf16 with float32 parameters (the
+default on the card; f32 on the CPU).  On SIGTERM it saves the train
+state at the window's end and exits 86 (``--preempt_save``);
+``--watchdog S`` exits 87 on a stall, for ``cli.supervise`` to relaunch.
+``--data_parallel`` trains over the ranks of a gang (``cli.supervise
+--ranks N``, ``torchrun``; in one process, a gang of one), each rank on
+its slice of every batch of ``--batch_size``; ``--zero_opt`` shards the
+Adam moments over them (``parallel/``).
 """
 
 from __future__ import annotations
@@ -33,8 +37,9 @@ from eadgan_tpu_torch.cli.common import (
 )
 from eadgan_tpu_torch.data import load_image_folder
 from eadgan_tpu_torch.ops import warp_affine
+from eadgan_tpu_torch.parallel import is_coordinator
 from eadgan_tpu_torch.sample.figures import celeba_training_grids
-from eadgan_tpu_torch.train.checkpoint import cpu_state_dict, save_checkpoint, save_train_state
+from eadgan_tpu_torch.train.checkpoint import cpu_state_dict, save_checkpoint, save_train_state, save_train_state_sync
 from eadgan_tpu_torch.train.config import CelebaConfig
 from eadgan_tpu_torch.train.engine import generator_apply, run_epochs
 from eadgan_tpu_torch.train.gan_celeba import init_celeba_gan_state, make_celeba_gan_step
@@ -67,9 +72,8 @@ def main(argv=None) -> None:
     add_run_args(parser)
     opt = parser.parse_args(argv)
     print(opt)
-    init_multiprocess()
     disable_tf32()
-    device = platform_device()
+    device = init_multiprocess(opt, platform_device)
 
     config = CelebaConfig(
         n_epochs=opt.n_epochs,
@@ -93,11 +97,11 @@ def main(argv=None) -> None:
     )
 
     state = init_celeba_gan_state(
-        config, device=device, seed=opt.seed, dtype=resolve_compute_dtype(opt)
+        config, device=device, seed=opt.seed, dtype=resolve_compute_dtype(opt, device)
     )
     state = maybe_resume(state, opt.resume, opt.ckpt_dir, STATE_STEM)
     step = make_celeba_gan_step(config)
-    logger = MetricLogger(opt.jsonl or None, print_every=10)
+    logger = MetricLogger((opt.jsonl or None) if is_coordinator() else None, print_every=10)
 
     def on_batch(batches_done, state, metrics, batch):
         if batches_done % config.sample_interval == 0:
@@ -128,7 +132,7 @@ def main(argv=None) -> None:
     guard = setup_preemption(opt)
 
     def on_shutdown(step_now, state):
-        save_train_state(opt.ckpt_dir, STATE_STEM, step_now, state, keep=opt.keep_states)
+        save_train_state_sync(opt.ckpt_dir, STATE_STEM, step_now, state, keep=opt.keep_states)
 
     run_epochs(
         n_epochs=config.n_epochs,
@@ -151,6 +155,8 @@ def main(argv=None) -> None:
         profile_dir=opt.profile_dir,
         stop_event=guard.requested if guard else None,
         on_shutdown=on_shutdown,
+        data_parallel=opt.data_parallel,
+        zero_opt=opt.zero_opt,
     )
     exit_if_preempted(guard)
 

@@ -4,16 +4,17 @@ matmul mode, resume, the SIGTERM guard and the rank environment.
 PyTorch counterpart of ``eadgan_tpu/cli/common.py``.  The device is
 chosen by ``utils.device.platform_device`` (``EADGAN_PLATFORM=cpu`` for
 the CPU, the CUDA card otherwise).  Every trainer CLI first calls
-:func:`init_multiprocess`, which refuses a multi-process rank
-environment (multi-process training is not ported yet), then
-:func:`disable_tf32` before it picks the device, so its float32 convs
-and matrix products run in full float32, the mode the CPU-vs-card gates
-check (torch's default lets cuDNN convolve in TF32).  It arms the
-SIGTERM guard (:func:`setup_preemption`, ``--preempt_save on`` by
-default), passes ``--watchdog`` and ``--profile_dir`` to ``run_epochs``
-and ends with :func:`exit_if_preempted`.  ``--data_parallel`` and
-``--zero_opt`` belong to the scale-out slice of the port and are not
-defined, so argparse rejects them.
+:func:`disable_tf32`, so its float32 convs and matrix products run in
+full float32, the mode the CPU-vs-card gates check (torch's default lets
+cuDNN convolve in TF32), then takes its device from
+:func:`init_multiprocess`, which joins a multi-process gang when the
+rank environment names one (``--data_parallel``, ``parallel/``) and
+refuses the configurations the JAX CLIs refuse.  It arms the SIGTERM
+guard (:func:`setup_preemption`, ``--preempt_save on`` by default),
+passes ``--watchdog``, ``--profile_dir``, ``--data_parallel`` and
+``--zero_opt`` to ``run_epochs``, saves its final state collectively
+(``checkpoint.save_train_state_sync``) and ends with
+:func:`exit_if_preempted`.
 """
 
 from __future__ import annotations
@@ -21,9 +22,11 @@ from __future__ import annotations
 import argparse
 import os
 import sys
+from typing import Callable
 
 import torch
 
+from eadgan_tpu_torch.parallel import multihost
 from eadgan_tpu_torch.train.checkpoint import restore_latest, restore_train_state
 
 __all__ = [
@@ -37,48 +40,68 @@ __all__ = [
     "setup_preemption",
 ]
 
-# the rank environment the JAX package's ``parallel.initialize`` reads
-# (``cli.supervise --ranks N`` sets the EADGAN_MP_* triple)
-_COORDINATOR_ENV_VARS = (
-    "JAX_COORDINATOR_ADDRESS",
-    "COORDINATOR_ADDRESS",
-    "MEGASCALE_COORDINATOR_ADDRESS",
-    "EADGAN_MP_COORDINATOR",
-)
+
+def _gang_request() -> str:
+    """The variable that names a multi-process run (``WORLD_SIZE`` > 1,
+    ``EADGAN_MP_NUM_PROCESSES`` > 1, or a coordinator address without
+    a world size of 1), as ``NAME=value``; empty when there is none."""
+    if not multihost.wants_gang():
+        return ""
+    for name in ("EADGAN_MP_NUM_PROCESSES", "WORLD_SIZE", *multihost._CLUSTER_ENV_VARS,
+                 "MASTER_ADDR"):
+        if os.environ.get(name):
+            return f"{name}={os.environ[name]}"
+    return "a rank environment"
 
 
-def init_multiprocess() -> None:
-    """Refuse a multi-process run, which the port cannot do yet.
+def init_multiprocess(opt, pick_device: Callable[[], torch.device]) -> torch.device:
+    """Join the gang a rank environment names and return this rank's
+    device: ``pick_device()`` (the CLI's ``utils.device.platform_device``)
+    when there is none, else the rank's card on a CUDA machine.
 
     ``cli.supervise --ranks N`` hands each gang member the ``EADGAN_MP_*``
     rank triple, a cluster scheduler may set a coordinator address
-    instead, and ``torchrun`` sets ``WORLD_SIZE``.  The JAX package joins
-    such ranks into one global mesh under ``--data_parallel``; the port
-    has no multi-process training yet, so each rank would train an
-    independent copy on its card and write the same checkpoint paths.
-    When the environment names more than one process (``WORLD_SIZE`` > 1,
-    ``EADGAN_MP_NUM_PROCESSES`` > 1, or a coordinator address without
-    ``EADGAN_MP_NUM_PROCESSES`` <= 1) this raises ``SystemExit`` before
-    the CLI touches the card; otherwise it does nothing."""
-    n = os.environ.get("EADGAN_MP_NUM_PROCESSES", "")
-    world = os.environ.get("WORLD_SIZE", "")
-    if world and int(world) > 1:
-        why = f"WORLD_SIZE={world}"
-    elif n:
-        if int(n) <= 1:
-            return
-        why = f"EADGAN_MP_NUM_PROCESSES={n}"
-    else:
-        named = [v for v in _COORDINATOR_ENV_VARS if os.environ.get(v)]
-        if not named:
-            return
-        why = f"{named[0]}={os.environ[named[0]]}"
-    raise SystemExit(
-        f"multi-process run requested ({why}): multi-process training is not yet "
-        "ported to eadgan_tpu_torch, and every rank would train an independent model "
-        "against the same checkpoint paths. Run one process (unset the rank "
-        "environment, or cli.supervise without --ranks)"
-    )
+    instead, and ``torchrun`` sets ``WORLD_SIZE``, ``RANK`` and
+    ``MASTER_ADDR``; ``parallel.initialize`` reads any of them and joins
+    one process group, one rank per card.  The JAX CLIs' refusals hold,
+    raised as ``SystemExit`` before the card is touched:
+
+    * a multi-process run without ``--data_parallel``: each rank would
+      train an independent model against the same checkpoint paths (a
+      trainer without the flag, the approximator, always refuses);
+    * ``--zero_opt`` in a multi-process run: the cadence checkpoints are
+      written by rank 0 alone, which cannot gather moments sliced over
+      the ranks (a library loop that routes every save through
+      ``parallel.save_on_coordinator`` can);
+
+    so does a rank environment that names a gang without its coordinator,
+    world size or rank.  A single-process ``--data_parallel`` run joins a
+    group of one (``parallel.join_local``), which puts the data axis's
+    collectives on its path.  The refusals come before ``pick_device``
+    is called."""
+    why = _gang_request()
+    data_parallel = getattr(opt, "data_parallel", False)
+    if why:
+        if not data_parallel:
+            flag = ("pass --data_parallel so the ranks join one gang" if hasattr(opt, "data_parallel")
+                    else "this trainer has no --data_parallel; run one process")
+            raise SystemExit(
+                f"multi-process run requested ({why}): {flag}. Without it every rank would "
+                "train an independent model against the same checkpoint paths")
+        if getattr(opt, "zero_opt", False):
+            raise SystemExit(
+                f"multi-process run requested ({why}): --zero_opt is not supported in "
+                "multi-process CLI runs. Cadence checkpoints are written by rank 0 alone, "
+                "which cannot gather Adam moments sliced over the ranks; a library loop "
+                "that saves through parallel.save_on_coordinator on every rank can")
+    try:
+        multihost.check_rank_environment()
+    except ValueError as e:
+        raise SystemExit(f"multi-process run requested ({why}): {e}") from None
+    device = multihost.initialize(device=pick_device())
+    if data_parallel:
+        device = multihost.join_local(device)
+    return device
 
 
 def setup_preemption(opt):
@@ -167,11 +190,29 @@ def add_run_args(parser: argparse.ArgumentParser) -> None:
         "launched step per batch, gathered on the host (debugging)",
     )
     parser.add_argument(
-        "--compute", choices=["bf16", "f32"], default="f32",
+        "--compute", choices=["bf16", "f32"], default=None,
         help="model compute type; parameters, BatchNorm statistics and spectral-norm state "
-        "stay float32 either way. The warp runs on the float32 real batch and accumulates "
-        "in float32 in both modes (the JAX package's EADGAN_WARP_PRECISION=fast selects "
-        "TPU matrix-unit passes and has no counterpart here)",
+        "stay float32 either way. Default: bf16 on the CUDA card (tensor-core passes, the "
+        "configuration a production run trains in) and f32 on the CPU (the parity tests). "
+        "The warp runs on the float32 real batch and accumulates in float32 in both modes "
+        "(the JAX package's EADGAN_WARP_PRECISION=fast selects TPU matrix-unit passes and "
+        "has no counterpart here). GAN trainers only: the pxy pretrainers always run f32 "
+        "(their codes feed the exact 3x3 affine algebra)",
+    )
+    parser.add_argument(
+        "--data_parallel", action="store_true",
+        help="data-parallel training over the ranks of a gang (cli.supervise --ranks N, "
+        "torchrun), one rank per card: each rank takes its slice of every global batch of "
+        "--batch_size, gradients, BatchNorm statistics and logged metrics are averaged over "
+        "the ranks (all-reduces that the CUDA graph captures), rank 0 writes. In one process, "
+        "a gang of one",
+    )
+    parser.add_argument(
+        "--zero_opt", action="store_true",
+        help="with --data_parallel: shard the Adam moments over the ranks (ZeRO-1, "
+        "parallel/zero.py) instead of replicating them, ~1/N the optimizer memory per "
+        "card; parameters stay replicated. Requires the chained engine (--chain > 1); "
+        "refused in a multi-process CLI run",
     )
     parser.add_argument(
         "--profile_dir", type=str, default="",
@@ -209,11 +250,14 @@ def _positive_int(text: str) -> int:
     return value
 
 
-def resolve_compute_dtype(opt):
+def resolve_compute_dtype(opt, device):
     """``--compute`` as a model ``dtype``: ``torch.bfloat16`` or ``None``
-    (float32).  The default is f32, the JAX package's default off the
-    TPU."""
-    return torch.bfloat16 if opt.compute == "bf16" else None
+    (float32).  Unset, it follows the run's ``device``, as the JAX
+    package's follows its backend: bf16 on the CUDA card, so a production
+    run trains in the configuration the step is timed in, and f32 on the
+    CPU, where the parity tests run."""
+    choice = opt.compute or ("bf16" if torch.device(device).type == "cuda" else "f32")
+    return torch.bfloat16 if choice == "bf16" else None
 
 
 def maybe_resume(state, resume: str, ckpt_dir: str, stem: str):

@@ -11,7 +11,9 @@ generator's eval-mode forward in float32; ``--quant bf16`` the
 BatchNorm-folded bf16 forward; ``--quant int8`` the folded forward with
 int8 mid layers, on the card through the ``quantize_int8`` and
 ``int8_convt`` kernels (``ops/quant.py``): 8 forwards of batch 100, each
-3 transposed-conv launches and 6 quantization launches.
+3 transposed-conv launches and 4 quantization launches (two for layer
+1's input, whose abs-max takes a pass of its own, one each for layers 2
+and 3, whose abs-max ``int8_convt`` hands on).
 """
 
 from __future__ import annotations

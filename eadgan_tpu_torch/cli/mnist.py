@@ -11,8 +11,10 @@ the port never downloads), trains the LSGAN step on the CUDA card
 varying_c1..7 grids every ``sample_interval`` steps and, every
 ``10 * sample_interval``, ``generator_%d.pt`` and ``encoder_%d.pt`` with
 the train state ``mnist_train_state_%d.ckpt`` beside them, which
-``--resume`` restores.  ``--compute bf16`` runs G, D and E in bf16; the
-approximator stays float32.
+``--resume`` restores.  ``--compute bf16`` (the default on the card)
+runs G, D and E in bf16; the approximator stays float32.
+``--data_parallel`` / ``--zero_opt``: data-parallel training over a
+gang's ranks (``parallel/``), as ``cli.celeba``.
 """
 
 from __future__ import annotations
@@ -34,8 +36,9 @@ from eadgan_tpu_torch.cli.common import (
 )
 from eadgan_tpu_torch.data.mnist import load_mnist, mnist_archive_present
 from eadgan_tpu_torch.ops import warp_affine
+from eadgan_tpu_torch.parallel import is_coordinator
 from eadgan_tpu_torch.sample.figures import mnist_training_grids
-from eadgan_tpu_torch.train.checkpoint import restore_model, save_model, save_train_state
+from eadgan_tpu_torch.train.checkpoint import restore_model, save_model, save_train_state, save_train_state_sync
 from eadgan_tpu_torch.train.config import MnistConfig
 from eadgan_tpu_torch.train.engine import generator_apply, run_epochs
 from eadgan_tpu_torch.train.gan_mnist import METRIC_KEYS, init_mnist_gan_state, make_mnist_gan_step
@@ -71,9 +74,8 @@ def main(argv=None) -> None:
     add_run_args(parser)
     opt = parser.parse_args(argv)
     print(opt)
-    init_multiprocess()
     disable_tf32()
-    device = platform_device()
+    device = init_multiprocess(opt, platform_device)
 
     config = MnistConfig(
         n_epochs=opt.n_epochs,
@@ -109,11 +111,11 @@ def main(argv=None) -> None:
         )
 
     state = init_mnist_gan_state(
-        config, approx, device=device, seed=opt.seed, dtype=resolve_compute_dtype(opt)
+        config, approx, device=device, seed=opt.seed, dtype=resolve_compute_dtype(opt, device)
     )
     state = maybe_resume(state, opt.resume, opt.ckpt_dir, STATE_STEM)
     step = make_mnist_gan_step(config)
-    logger = MetricLogger(opt.jsonl or None)
+    logger = MetricLogger((opt.jsonl or None) if is_coordinator() else None)
     save_every = config.sample_interval * 10
 
     def on_batch(batches_done, state, metrics, batch):
@@ -137,7 +139,7 @@ def main(argv=None) -> None:
     guard = setup_preemption(opt)
 
     def on_shutdown(step_now, state):
-        save_train_state(opt.ckpt_dir, STATE_STEM, step_now, state, keep=opt.keep_states)
+        save_train_state_sync(opt.ckpt_dir, STATE_STEM, step_now, state, keep=opt.keep_states)
 
     run_epochs(
         n_epochs=config.n_epochs,
@@ -157,6 +159,8 @@ def main(argv=None) -> None:
         profile_dir=opt.profile_dir,
         stop_event=guard.requested if guard else None,
         on_shutdown=on_shutdown,
+        data_parallel=opt.data_parallel,
+        zero_opt=opt.zero_opt,
     )
     exit_if_preempted(guard)
 

@@ -10,7 +10,8 @@ original/align grids every ``sample_interval`` steps and, every
 with ``--encoder_pxy``, and beside it the train state
 ``encoder_pxy[_color]_train_state_%d.ckpt`` for ``--resume``.  The
 aligner computes in float32 whatever ``--compute`` says, as in the JAX
-package.
+package.  ``--data_parallel`` / ``--zero_opt``: data-parallel training
+over a gang's ranks (``parallel/``), as ``cli.celeba``.
 """
 
 from __future__ import annotations
@@ -30,8 +31,9 @@ from eadgan_tpu_torch.cli.common import (
     setup_preemption,
 )
 from eadgan_tpu_torch.data import load_dsprites
+from eadgan_tpu_torch.parallel import is_coordinator
 from eadgan_tpu_torch.sample.figures import pxy_grids
-from eadgan_tpu_torch.train.checkpoint import save_model, save_train_state
+from eadgan_tpu_torch.train.checkpoint import save_model, save_train_state, save_train_state_sync
 from eadgan_tpu_torch.train.config import PxyConfig
 from eadgan_tpu_torch.train.engine import run_epochs
 from eadgan_tpu_torch.train.gan_dsprites import align_images
@@ -63,9 +65,8 @@ def align_sample(model, img: torch.Tensor, seed: int, config: PxyConfig):
 def main(argv=None, colored: bool = False) -> None:
     opt = build_parser(colored).parse_args(argv)
     print(opt)
-    init_multiprocess()
     disable_tf32()
-    device = platform_device()
+    device = init_multiprocess(opt, platform_device)
 
     config = PxyConfig.for_dataset(
         colored,
@@ -84,7 +85,7 @@ def main(argv=None, colored: bool = False) -> None:
     state = init_pxy_state(config, device=device, seed=opt.seed)
     state = maybe_resume(state, opt.resume, opt.ckpt_dir, f"{stem}_train_state")
     step = make_pxy_step(config)
-    logger = MetricLogger(opt.jsonl or None)
+    logger = MetricLogger((opt.jsonl or None) if is_coordinator() else None)
     save_every = config.sample_interval * (10 if colored else 50)
 
     def on_batch(batches_done, state, metrics, batch):
@@ -102,7 +103,9 @@ def main(argv=None, colored: bool = False) -> None:
     guard = setup_preemption(opt)
 
     def on_shutdown(step_now, state):
-        save_train_state(opt.ckpt_dir, f"{stem}_train_state", step_now, state, keep=opt.keep_states)
+        save_train_state_sync(
+            opt.ckpt_dir, f"{stem}_train_state", step_now, state, keep=opt.keep_states
+        )
 
     run_epochs(
         n_epochs=config.n_epochs,
@@ -122,6 +125,8 @@ def main(argv=None, colored: bool = False) -> None:
         profile_dir=opt.profile_dir,
         stop_event=guard.requested if guard else None,
         on_shutdown=on_shutdown,
+        data_parallel=opt.data_parallel,
+        zero_opt=opt.zero_opt,
     )
     exit_if_preempted(guard)
 

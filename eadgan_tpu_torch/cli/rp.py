@@ -11,7 +11,9 @@ for the CPU), writes original/trans/varying_c* grids every
 ``2 * sample_interval`` steps and, every ``500 * sample_interval``
 (colored: ``50 *``), ``encoder_%d.pt`` and ``generator_%d.pt`` with the
 train state ``rp_train_state_%d.ckpt`` beside them.  ``--compute bf16``
-runs G, D and E in bf16; the aligner stays float32.
+(the default on the card) runs G, D and E in bf16; the aligner stays
+float32.  ``--data_parallel`` / ``--zero_opt``: data-parallel training
+over a gang's ranks (``parallel/``), as ``cli.celeba``.
 """
 
 from __future__ import annotations
@@ -32,8 +34,9 @@ from eadgan_tpu_torch.cli.common import (
     setup_preemption,
 )
 from eadgan_tpu_torch.data import load_dsprites
+from eadgan_tpu_torch.parallel import is_coordinator
 from eadgan_tpu_torch.sample.figures import sprites_training_grids
-from eadgan_tpu_torch.train.checkpoint import restore_model, save_model, save_train_state
+from eadgan_tpu_torch.train.checkpoint import restore_model, save_model, save_train_state, save_train_state_sync
 from eadgan_tpu_torch.train.config import SpritesGanConfig
 from eadgan_tpu_torch.train.engine import generator_apply, run_epochs
 from eadgan_tpu_torch.train.gan_dsprites import (
@@ -82,9 +85,8 @@ def render_pair(pxy, img: torch.Tensor, seed: int, config: SpritesGanConfig):
 def main(argv=None, colored: bool = False) -> None:
     opt = build_parser(colored).parse_args(argv)
     print(opt)
-    init_multiprocess()
     disable_tf32()
-    device = platform_device()
+    device = init_multiprocess(opt, platform_device)
 
     # colored: D follows --lr (colored_dSprites/rp_color.py:275); gray
     # hard-codes 2e-4 (dSprites/rp.py:277)
@@ -116,11 +118,11 @@ def main(argv=None, colored: bool = False) -> None:
         )
 
     state = init_sprites_gan_state(
-        config, pxy, device=device, seed=opt.seed, dtype=resolve_compute_dtype(opt)
+        config, pxy, device=device, seed=opt.seed, dtype=resolve_compute_dtype(opt, device)
     )
     state = maybe_resume(state, opt.resume, opt.ckpt_dir, STATE_STEM)
     step = make_sprites_gan_step(config)
-    logger = MetricLogger(opt.jsonl or None)
+    logger = MetricLogger((opt.jsonl or None) if is_coordinator() else None)
     save_every = config.sample_interval * (50 if colored else 500)
 
     def on_batch(batches_done, state, metrics, batch):
@@ -142,7 +144,7 @@ def main(argv=None, colored: bool = False) -> None:
     guard = setup_preemption(opt)
 
     def on_shutdown(step_now, state):
-        save_train_state(opt.ckpt_dir, STATE_STEM, step_now, state, keep=opt.keep_states)
+        save_train_state_sync(opt.ckpt_dir, STATE_STEM, step_now, state, keep=opt.keep_states)
 
     run_epochs(
         n_epochs=config.n_epochs,
@@ -162,6 +164,8 @@ def main(argv=None, colored: bool = False) -> None:
         profile_dir=opt.profile_dir,
         stop_event=guard.requested if guard else None,
         on_shutdown=on_shutdown,
+        data_parallel=opt.data_parallel,
+        zero_opt=opt.zero_opt,
     )
     exit_if_preempted(guard)
 

@@ -25,10 +25,11 @@ Multi-process runs (``--ranks N``): the supervisor owns the whole gang.
 It launches N replicas of the command, each with the rank environment
 ``EADGAN_MP_PROCESS_ID``, ``EADGAN_MP_NUM_PROCESSES`` and
 ``EADGAN_MP_COORDINATOR`` (a fresh localhost coordinator port each
-life, since a coordinator cannot be rejoined after a member died).  The
-port's trainers do not train across processes yet: they refuse that
-environment (``cli/common.py::init_multiprocess``), so ``--ranks 2`` on
-a port trainer ends in that trainer's error.  Ranks of a distributed run
+life, since a coordinator cannot be rejoined after a member died).  A
+trainer run with ``--data_parallel`` joins the gang through
+``parallel.initialize`` (``cli/common.py::init_multiprocess``), one rank
+per card (``EADGAN_DIST_BACKEND=gloo`` lets ranks share one); without
+the flag it refuses the rank environment.  Ranks of a distributed run
 fail together: one wedged rank parks every peer inside a collective, so
 the first rank to exit nonzero condemns the gang; the supervisor kills
 the survivors (SIGTERM, then SIGKILL after 2 s) and relaunches all ranks

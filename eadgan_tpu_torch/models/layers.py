@@ -39,6 +39,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from eadgan_tpu_torch.parallel.mesh import axis_size, global_mean
+
 __all__ = [
     "TorchConv",
     "TorchConvTranspose",
@@ -189,6 +191,11 @@ class TorchBatchNorm(nn.Module):
     package's BatchNorm called without ``use_running_average`` is (the
     MNIST encoder's).  Statistics are float32; the output keeps the
     input's dtype.  ``state_dict`` keys are those of ``nn.BatchNorm2d``.
+    Inside a data-parallel step (``parallel.data_axis``) the batch
+    statistics are those of the global batch: the ranks' means of x and
+    x^2 averaged over the ranks in one all-reduce, whose backward
+    all-reduces their gradient, as the JAX package's means over a sharded
+    batch are under SPMD.
     """
 
     def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.9,
@@ -213,6 +220,9 @@ class TorchBatchNorm(nn.Module):
         xf = x.float()
         mean = xf.mean(dim=(0, 2, 3))
         mean2 = (xf * xf).mean(dim=(0, 2, 3))
+        if axis_size():
+            # inside a data-parallel step: statistics of the global batch
+            mean, mean2 = global_mean(torch.stack([mean, mean2])).unbind(0)
         var = torch.clamp(mean2 - mean * mean, min=0.0)
         if self.update_stats:
             with torch.no_grad():

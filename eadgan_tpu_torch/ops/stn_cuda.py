@@ -15,10 +15,17 @@ correct one is given all the same, as autograd through the plain version
 path went through the kernel.  A call made while the stream is being
 captured into a CUDA graph records the kernel and launches nothing: it
 adds to ``captured_count`` instead, and whoever replays the graph counts
-the launches of each replay with :func:`count_replayed`.
+the launches of each replay with :func:`count_replayed`.  A process
+started with ``EADGAN_LAUNCH_REPORT=<dir>`` writes its count at exit to
+``<dir>/warp_launches.<pid>.json`` (with its rank, ``EADGAN_MP_PROCESS_ID``),
+so a script can count the launches of the ranks of a gang it started.
 """
 
 from __future__ import annotations
+
+import atexit
+import json
+import os
 
 import torch
 
@@ -32,6 +39,15 @@ launch_count = 0
 captured_count = 0
 
 _ENTRY = {torch.float32: "eadgan_warp_affine_f32", torch.bfloat16: "eadgan_warp_affine_bf16"}
+
+
+def _report_launches(directory: str) -> None:
+    with open(os.path.join(directory, f"warp_launches.{os.getpid()}.json"), "w") as f:
+        json.dump({"rank": os.environ.get("EADGAN_MP_PROCESS_ID", ""), "launches": launch_count}, f)
+
+
+if os.environ.get("EADGAN_LAUNCH_REPORT"):
+    atexit.register(_report_launches, os.environ["EADGAN_LAUNCH_REPORT"])
 
 
 def reset_launch_count() -> None:

@@ -16,16 +16,20 @@ own ``torch.save`` format.  Two kinds of file:
   file loads only into a state with the same fields.
 
 Writes are atomic: a temporary file in the same directory, fsynced, then
-``os.replace``; a crash mid-write leaves the previous file intact.  On
+``os.replace``, then the directory fsynced so the rename survives a
+power loss; a crash mid-write leaves the previous file intact.  On
 restore, :func:`restore_latest` skips a newest file that does not load
 (damaged on disk, or truncated by a writer older than the atomic one)
-and falls back to the next.  Reading the JAX package's files is not
-done here.
+and falls back to the next.  ``EADGAN_FAULT_KILL_SAVE_STEP`` is the
+drill of that recovery (:func:`_maybe_fault_kill_mid_write`).  In a
+multi-process gang :func:`save_train_state_sync` is the collective save.
+Reading the JAX package's files is not done here.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import io
 import os
 import re
 import sys
@@ -46,6 +50,7 @@ __all__ = [
     "saved_steps",
     "latest_step",
     "prune_saved",
+    "save_train_state_sync",
 ]
 
 def cpu_state_dict(model: nn.Module) -> Dict[str, torch.Tensor]:
@@ -54,9 +59,44 @@ def cpu_state_dict(model: nn.Module) -> Dict[str, torch.Tensor]:
     return {k: v.detach().cpu() for k, v in model.state_dict().items()}
 
 
+def _maybe_fault_kill_mid_write(path: str, obj: Any) -> None:
+    """The crash-recovery drill's hook, after the JAX package's: with
+    ``EADGAN_FAULT_KILL_SAVE_STEP=N`` set, a save of a train-state file
+    ``<stem>_M.ckpt`` with ``M >= N`` writes the first half of its bytes
+    straight to the final path, as a writer killed mid-write without the
+    atomic rename would leave it, and exits with the watchdog's stall
+    code 87 for ``cli.supervise`` to relaunch.  One-shot: with
+    ``EADGAN_FAULT_KILL_SAVE_MARKER=<path>`` it creates that file, and a
+    process that finds it already there saves normally.  Unset, it costs
+    one environment lookup."""
+    step_env = os.environ.get("EADGAN_FAULT_KILL_SAVE_STEP", "")
+    if not step_env:
+        return
+    m = re.search(r"_(\d+)\.ckpt$", path)
+    if not m or int(m.group(1)) < int(step_env):
+        return
+    marker = os.environ.get("EADGAN_FAULT_KILL_SAVE_MARKER", "")
+    if marker and os.path.exists(marker):
+        return
+    if marker:
+        open(marker, "w").close()
+    buf = io.BytesIO()
+    torch.save(obj, buf)
+    data = buf.getvalue()
+    with open(path, "wb") as f:
+        f.write(data[: max(1, len(data) // 2)])
+        f.flush()
+        os.fsync(f.fileno())
+    print(f"fault injection: truncated mid-write of {path}, exiting 87", flush=True)
+    os._exit(87)  # utils.watchdog.STALL_EXIT_CODE
+
+
 def save_checkpoint(path: str, obj: Any) -> None:
-    """``torch.save(obj)`` to ``path`` atomically."""
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    """``torch.save(obj)`` to ``path`` atomically, then the directory
+    fsynced (where the file system allows it)."""
+    directory = os.path.dirname(path) or "."
+    os.makedirs(directory, exist_ok=True)
+    _maybe_fault_kill_mid_write(path, obj)
     tmp = f"{path}.tmp.{os.getpid()}"
     try:
         with open(tmp, "wb") as f:
@@ -67,6 +107,14 @@ def save_checkpoint(path: str, obj: Any) -> None:
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
+    try:
+        dfd = os.open(directory, os.O_RDONLY)
+        try:
+            os.fsync(dfd)
+        finally:
+            os.close(dfd)
+    except OSError:
+        pass
 
 
 def _cpu(obj):
@@ -92,6 +140,12 @@ def restore_model(path: str, model: nn.Module) -> nn.Module:
     return model
 
 
+def _is_optimizer(value) -> bool:
+    from eadgan_tpu_torch.parallel.zero import ZeroAdam
+
+    return isinstance(value, (torch.optim.Optimizer, ZeroAdam))
+
+
 def _fields(state) -> Dict[str, Any]:
     """The state's fields that are not None, by name."""
     return {
@@ -105,12 +159,14 @@ def train_state_payload(state) -> Dict[str, Any]:
     """What a train-state file holds: each field of ``state`` copied to
     the host (models' and optimizers' state_dicts on the CPU, the
     generator's state, the step).  On the card the copies run on the
-    current stream, after the work already issued there."""
+    current stream, after the work already issued there.  A ZeRO
+    optimizer (``parallel/zero.py``) gives its full, gathered state, so
+    the file is that of a replicated run."""
     out = {}
     for name, value in _fields(state).items():
         if isinstance(value, nn.Module):
             out[name] = cpu_state_dict(value)
-        elif isinstance(value, torch.optim.Optimizer):
+        elif _is_optimizer(value):
             out[name] = _cpu(value.state_dict())
         elif isinstance(value, torch.Generator):
             out[name] = value.get_state()
@@ -144,6 +200,8 @@ def _apply(state, payload: Dict[str, Any]):
             value.load_state_dict(payload[name])
         elif isinstance(value, torch.optim.Optimizer):
             _load_optimizer(value, payload[name])
+        elif _is_optimizer(value):
+            value.load_state_dict(payload[name])  # ZeRO: this rank's slices
         elif isinstance(value, torch.Generator):
             value.set_state(payload[name])
         else:
@@ -242,6 +300,26 @@ def save_train_state(ckpt_dir: str, stem: str, step: int, state, keep: int = 0) 
     path = os.path.join(ckpt_dir, f"{stem}_{step}.ckpt")
     save_checkpoint(path, train_state_payload(state))
     prune_saved(ckpt_dir, stem, keep, current_step=step)
+    return path
+
+
+def save_train_state_sync(ckpt_dir: str, stem: str, step: int, state, keep: int = 0) -> str:
+    """:func:`save_train_state` for a multi-process gang: every rank must
+    call it, as the engine's ``on_shutdown`` does on every rank.  ZeRO
+    moments are gathered (a collective), rank 0 writes and prunes, and a
+    barrier holds the other ranks until the file is complete
+    (``parallel.save_on_coordinator``); the file equals a one-process
+    save.  In one process it is :func:`save_train_state`.  Cadence saves
+    from ``on_batch`` keep :func:`save_train_state`: the engine runs
+    ``on_batch`` on rank 0 alone, where a collective would wait forever."""
+    from eadgan_tpu_torch.parallel.multihost import is_coordinator, process_count, save_on_coordinator
+
+    if process_count() <= 1:
+        return save_train_state(ckpt_dir, stem, step, state, keep=keep)
+    path = os.path.join(ckpt_dir, f"{stem}_{step}.ckpt")
+    save_on_coordinator(path, state)
+    if is_coordinator():
+        prune_saved(ckpt_dir, stem, keep, current_step=step)
     return path
 
 

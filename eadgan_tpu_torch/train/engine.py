@@ -27,6 +27,12 @@ chained engine gives those steps, ``plan_windows``), and the run ends at
 the planned total, ``n_epochs * n_batches``.  (The JAX chained engine
 plans a whole epoch from the resume point and so runs past that total;
 the port does not copy that.)
+
+With ``data_parallel`` both engines run on the ``data`` axis of
+``parallel/`` and keep the JAX engine's multi-process contract: every
+rank draws the same batches and flips and gathers its own rows of each,
+rank 0 alone logs and runs ``on_batch``, and a stop is a gang decision
+(:class:`_GangStopView`).
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ import numpy as np
 import torch
 
 from eadgan_tpu_torch.models.layers import no_stat_updates
+from eadgan_tpu_torch.parallel.mesh import shard_batch, shard_window
 from eadgan_tpu_torch.train.chain import (
     EventWorker,
     LazyHostBatch,
@@ -61,7 +68,7 @@ _FLIP_STREAM = 0x464C4950
 def epoch_batches(
     data: np.ndarray, batch_size: int, n_epochs: int, seed: int = 0,
     start_step: int = 0, scale: float = 1.0, shift: float = 0.0,
-    random_flip: bool = False,
+    random_flip: bool = False, rows: slice = slice(None),
 ):
     """Yield ``(epoch, host_batch)`` in training order from step
     ``start_step`` on: for each epoch a permutation of ``data`` (uint8,
@@ -72,7 +79,9 @@ def epoch_batches(
     ``data`` (dSprites) gains a channel axis, (B, H, W, 1), as the JAX
     engine's ``add_channel`` gives it.  The epoch holding ``start_step``
     yields only its remaining batches, from the start of its
-    permutation."""
+    permutation.  ``rows`` keeps those rows of each batch (a data-parallel
+    rank's slice, ``parallel.host_batch_slice``); the flip draws are made
+    for the whole batch first, so every rank's stream stays the same."""
     host_rng = np.random.default_rng(seed)
     flip_rng = np.random.default_rng([seed, _FLIP_STREAM])
     n = data.shape[0]
@@ -83,9 +92,10 @@ def epoch_batches(
         skip = done if epoch == first_epoch else 0
         for s in range(0, (n_batches - skip) * batch_size, batch_size):
             idx = perm[s : s + batch_size]
+            mask = shard_batch(flip_rng.random(len(idx)), rows) < 0.5 if random_flip else None
+            idx = shard_batch(idx, rows)
             out = data[idx].astype(np.float32) * scale + shift
             if random_flip:
-                mask = flip_rng.random(len(idx)) < 0.5
                 out[mask] = out[mask, :, ::-1]
             if data.ndim == 3:
                 # a reshape, not ``out[..., None]``: numpy gives a new axis
@@ -118,6 +128,8 @@ def run_epochs(
     stop_event=None,
     on_shutdown: Optional[Callable] = None,
     profile_dir: str = "",
+    data_parallel: bool = False,
+    zero_opt: bool = False,
 ):
     """The reference's epoch/batch double loop.
 
@@ -170,12 +182,64 @@ def run_epochs(
     process that finds it already there does not hang, so a supervised
     restart survives.  ``profile_dir`` wraps the run in
     :func:`~eadgan_tpu_torch.utils.profiler.trace`.
+
+    ``data_parallel`` trains on the ``data`` axis of ``parallel/``: each
+    rank of the process group (one of a world size of 1 is joined on
+    ``device`` when there is none, ``parallel.join_local``) takes its
+    slice of every global batch of ``batch_size``, the state is
+    broadcast from rank 0, and the step runs inside
+    ``parallel.data_axis`` (gradients, BatchNorm statistics and the
+    logged metrics averaged over the ranks; on the card the chained
+    engine's graph captures those all-reduces).  ``zero_opt`` (with
+    ``data_parallel`` and ``chain`` > 1, as in the JAX package) shards
+    the Adam moments (``parallel.zero_place``).  Multi-process contract,
+    after the JAX engine's: rank 0 alone runs ``on_batch`` and logs;
+    ``stop_event`` becomes a gang decision, polled once a window (a step
+    in the per-step engine) and once after the loop on every rank
+    (``parallel.any_process_flag``), so a SIGTERM to any rank stops every
+    rank at one boundary and sets every rank's event; ``on_shutdown``
+    then runs on every rank, so a final save must be collective
+    (``checkpoint.save_train_state_sync``).  Ranks that share a card
+    over gloo run the per-step engine: ``chain`` > 1 raises there.
     """
+    if zero_opt and not (data_parallel and chain > 1):
+        raise ValueError(
+            "--zero_opt shards optimizer state over the data axis: it requires "
+            "--data_parallel and the chained engine (--chain > 1)"
+        )
     if random_flip and data.dtype != np.uint8:
         raise ValueError("random_flip requires the uint8 image ingest path")
     if chain < 1:
         raise ValueError(f"chain must be >= 1, got {chain}")
     from eadgan_tpu_torch.utils.profiler import trace
+
+    device = torch.device(device)
+    rows = slice(None)
+    local_stop = stop_event
+    coordinator = True
+    if data_parallel:
+        from eadgan_tpu_torch import parallel
+        from eadgan_tpu_torch.parallel import multihost
+
+        device = parallel.join_local(device)
+        if chain > 1 and device.type == "cuda" and multihost.backend() == "gloo":
+            raise ValueError(
+                "gloo collectives cannot be captured in a CUDA graph: ranks that share a card "
+                "over gloo (EADGAN_DIST_BACKEND=gloo) train with the per-step engine, --chain 1"
+            )
+        rows = parallel.host_batch_slice(batch_size)
+        state = parallel.replicate(state)
+        if zero_opt:
+            parallel.zero_place(state)
+        step_fn = parallel.data_parallel_step(step_fn)
+        coordinator = parallel.is_coordinator()
+        if stop_event is not None and multihost.process_count() > 1:
+            stop_event = _GangStopView(stop_event)
+    if not coordinator:
+        on_batch = None
+        if logger is not None:
+            logger.close()
+            logger = None
 
     n_batches = data.shape[0] // batch_size
     start_step = state.step
@@ -189,9 +253,9 @@ def run_epochs(
     beat, grace, clear_grace = _heartbeat(wd)
     loop = dict(
         n_epochs=n_epochs, data=data, batch_size=batch_size, state=state, step_fn=step_fn,
-        on_batch=on_batch, device=torch.device(device), seed=seed, max_steps=max_steps,
+        on_batch=on_batch, device=device, seed=seed, max_steps=max_steps,
         logger=logger, metric_keys=metric_keys, scale=scale, shift=shift,
-        random_flip=random_flip, beat=beat, stop_event=stop_event,
+        random_flip=random_flip, beat=beat, stop_event=stop_event, rows=rows,
     )
     try:
         with trace(profile_dir or None):
@@ -200,24 +264,52 @@ def run_epochs(
                                             grace=grace, clear_grace=clear_grace)
             else:
                 state = _run_epochs_per_step(**loop, verify_progress=wd is not None)
+            # in a gang, one more collective poll, on every rank once
             if stop_event is not None and stop_event.is_set():
                 final_step = state.step
-                stop_event.cut_short = final_step < planned_end
+                local_stop.cut_short = final_step < planned_end
                 if on_shutdown is not None:
-                    print(f"graceful shutdown: saving final train state at step {final_step}",
-                          flush=True)
+                    if coordinator:
+                        print(f"graceful shutdown: saving final train state at step {final_step}",
+                              flush=True)
+                    else:  # every rank says where it stopped
+                        print(f"graceful shutdown: rank {multihost.process_index()} "
+                              f"stopped at step {final_step}", flush=True)
                     if wd is not None:
                         wd.grace()  # the save's seconds are no stall
                     t0 = time.perf_counter()
                     on_shutdown(final_step, state)
-                    print(f"graceful shutdown: final train state saved in "
-                          f"{time.perf_counter() - t0:.3f} s", flush=True)
+                    if coordinator:
+                        print(f"graceful shutdown: final train state saved in "
+                              f"{time.perf_counter() - t0:.3f} s", flush=True)
     finally:
         if wd is not None:
             wd.stop()
         if logger is not None:
             logger.close()
     return state
+
+
+class _GangStopView:
+    """A stop event seen by the whole gang: :meth:`is_set` ORs every
+    rank's local flag (``parallel.any_process_flag``, a collective, so
+    the engines poll it at the same boundaries on every rank) and, when
+    the gang stops, sets the local event too, so every rank saves and
+    exits 86, not only the signalled ones."""
+
+    def __init__(self, event):
+        self._event = event
+
+    def is_set(self) -> bool:
+        from eadgan_tpu_torch.parallel import any_process_flag
+
+        if any_process_flag(self._event.is_set()):
+            self._event.set()
+            return True
+        return False
+
+    def set(self) -> None:
+        self._event.set()
 
 
 def _heartbeat(wd):
@@ -248,18 +340,19 @@ def _heartbeat(wd):
 
 def _run_epochs_per_step(
     *, n_epochs, data, batch_size, state, step_fn, on_batch, device, seed, max_steps, logger,
-    metric_keys, scale, shift, random_flip, beat, stop_event, verify_progress,
+    metric_keys, scale, shift, random_flip, beat, stop_event, verify_progress, rows,
 ):
     """One eagerly launched step a batch, each batch gathered on the host
-    (:func:`epoch_batches`).  With ``verify_progress`` (a watchdog is
-    armed) each step's metrics are copied to the host before the beat,
-    which proves the device finished the step."""
+    (:func:`epoch_batches`, this rank's ``rows`` of it).  With
+    ``verify_progress`` (a watchdog is armed) each step's metrics are
+    copied to the host before the beat, which proves the device finished
+    the step.  ``on_batch`` None: no side effects (a rank other than 0)."""
     n_batches = data.shape[0] // batch_size
     start_step = state.step
     batches_done = start_step
     for epoch, host in epoch_batches(
         data, batch_size, n_epochs, seed=seed, start_step=start_step,
-        scale=scale, shift=shift, random_flip=random_flip,
+        scale=scale, shift=shift, random_flip=random_flip, rows=rows,
     ):
         batch = torch.from_numpy(host).to(device)
         state, metrics = step_fn(state, batch)
@@ -273,7 +366,8 @@ def _run_epochs_per_step(
                 batch=batches_done % n_batches,
                 n_batches=n_batches,
             )
-        on_batch(batches_done, state, metrics, (batch,))
+        if on_batch is not None:
+            on_batch(batches_done, state, metrics, (batch,))
         batches_done += 1
         if verify_progress:
             torch.stack([torch.as_tensor(v).float().reshape(()) for v in metrics.values()]).cpu()
@@ -288,7 +382,7 @@ def _run_epochs_per_step(
 def _run_epochs_chained(
     *, n_epochs, data, batch_size, state, step_fn, on_batch, device, seed, max_steps,
     logger, metric_keys, scale, shift, random_flip, chain, chain_periods, beat, grace,
-    clear_grace, stop_event,
+    clear_grace, stop_event, rows,
 ):
     """Windows of up to ``chain`` steps through a :class:`~eadgan_tpu_torch.
     train.chain.ChainedStep` of ``step_fn``, after
@@ -336,6 +430,13 @@ def _run_epochs_chained(
     and copied), ``disp`` (its steps enqueued), ``drain`` (the previous
     window's metrics waited for and logged), ``cb`` (``on_batch``).
     Their sum is the time between two window ends.
+
+    A data-parallel rank gathers its ``rows`` of each step's batch: its
+    columns of the window's (k, B) indices and flip masks, drawn for the
+    whole batch; the dataset stays whole on every rank's card.
+    ``on_batch`` None: no side effects and no snapshots (a rank other
+    than 0), with the same windows, so every rank polls ``stop_event`` at
+    the same window ends.
     """
     host_rng = np.random.default_rng(seed)
     flip_rng = np.random.default_rng([seed, _FLIP_STREAM])
@@ -367,7 +468,8 @@ def _run_epochs_chained(
 
     trace_path = os.environ.get("EADGAN_CHAIN_TRACE", "")
     trace = open(trace_path, "a") if trace_path else None
-    async_events = bool(chain_periods) and os.environ.get("EADGAN_SYNC_EVENTS", "") != "1"
+    async_events = (bool(chain_periods) and on_batch is not None
+                    and os.environ.get("EADGAN_SYNC_EVENTS", "") != "1")
     worker = EventWorker() if async_events else None
     event_stream = torch.cuda.Stream(device) if worker is not None and on_card else None
     pending = None  # the previous window: (start, k, epoch, host metrics, ready event)
@@ -405,14 +507,14 @@ def _run_epochs_chained(
             epoch_end = min((epoch + 1) * n_batches, stop)
             first = s
             for ws, k in plan_windows(s, epoch_end - s, chain, chain_periods, stop):
-                rows = perm[(ws - first) * batch_size : (ws - first + k) * batch_size]
-                rows = rows.reshape(k, batch_size)
-                window = [to_device(rows.astype(np.int32))]
+                idx = perm[(ws - first) * batch_size : (ws - first + k) * batch_size]
+                idx = idx.reshape(k, batch_size)
+                window = [to_device(shard_window(idx, rows).astype(np.int32))]
                 if random_flip:
                     # one draw per batch, in batch order: the per-step stream
-                    window.append(to_device(np.stack(
+                    window.append(to_device(shard_window(np.stack(
                         [flip_rng.random(batch_size) < 0.5 for _ in range(k)]
-                    )))
+                    ), rows)))
                 if chained.will_capture(window):
                     if worker is not None:
                         worker.flush()
@@ -433,7 +535,7 @@ def _run_epochs_chained(
                 pending = (ws, k, epoch, host, ready)
                 t2 = time.perf_counter()
                 is_event = any((ws + k - 1) % p == 0 for p in chain_periods if p)
-                if is_event or not chain_periods:
+                if on_batch is not None and (is_event or not chain_periods):
                     last = [w[-1] for w in window]
                     fetch = lambda last=last: prepare(consts, *last)[0]  # noqa: E731
                     batch = fetch() if is_event else LazyHostBatch(fetch)

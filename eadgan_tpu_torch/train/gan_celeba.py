@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from eadgan_tpu_torch.losses import bce_loss, mse_loss, torch_cross_entropy
 from eadgan_tpu_torch.models import CelebaDiscriminator, CelebaGenerator
 from eadgan_tpu_torch.ops import warp_affine
+from eadgan_tpu_torch.parallel.mesh import global_batch, local_rows
 from eadgan_tpu_torch.train.config import CelebaConfig
 from eadgan_tpu_torch.train.state import GanTrainState, adam
 from eadgan_tpu_torch.transforms import RPQXY, code_to_matrix, regularize
@@ -63,7 +64,9 @@ def make_celeba_gan_step(config: CelebaConfig):
     def step(state: GanTrainState, real_imgs: torch.Tensor, fixed=None):
         """``real_imgs``: contiguous (B, 64, 64, 3) NHWC in [-1, 1].
         ``fixed`` (parity tests) injects the random draws:
-        {"z", "sampled_labels", "code"}."""
+        {"z", "sampled_labels", "code"}.  In a data-parallel step the
+        draws are made (or given) at the global batch and this rank keeps
+        its rows (``parallel.local_rows``)."""
         g, d = state.g, state.d
         dev = real_imgs.device
         batch = real_imgs.shape[0]
@@ -72,11 +75,11 @@ def make_celeba_gan_step(config: CelebaConfig):
             sampled_labels = torch.as_tensor(fixed["sampled_labels"], dtype=torch.long, device=dev)
             code = torch.as_tensor(fixed["code"], dtype=torch.float32, device=dev)
         else:
-            z = torch.randn(batch, config.latent_dim, generator=state.rng, device=dev)
-            code = torch.rand(batch, config.code_dim, generator=state.rng, device=dev) * 2.0 - 1.0
-            sampled_labels = torch.randint(
-                0, config.n_classes, (batch,), generator=state.rng, device=dev
-            )
+            n = global_batch(batch)
+            z = torch.randn(n, config.latent_dim, generator=state.rng, device=dev)
+            code = torch.rand(n, config.code_dim, generator=state.rng, device=dev) * 2.0 - 1.0
+            sampled_labels = torch.randint(0, config.n_classes, (n,), generator=state.rng, device=dev)
+        z, code, sampled_labels = (local_rows(t, batch) for t in (z, code, sampled_labels))
         label_input = F.one_hot(sampled_labels, config.n_classes).to(torch.float32)
 
         matrix = code_to_matrix(RPQXY, code[:, :5])

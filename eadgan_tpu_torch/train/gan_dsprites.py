@@ -35,6 +35,7 @@ import torch.nn.functional as F
 from eadgan_tpu_torch.losses import bce_loss, mse_loss, mutual_info_loss
 from eadgan_tpu_torch.models import SpritesDiscriminator, SpritesEncoder, SpritesGenerator
 from eadgan_tpu_torch.ops import warp_affine
+from eadgan_tpu_torch.parallel.mesh import global_batch, local_rows
 from eadgan_tpu_torch.train.config import SpritesGanConfig
 from eadgan_tpu_torch.train.pretrain import colorize, draw_color
 from eadgan_tpu_torch.train.state import GanTrainState, adam
@@ -129,7 +130,9 @@ def make_sprites_gan_step(config: SpritesGanConfig):
         """``img``: contiguous (B, 64, 64, 1) NHWC in {0, 1}.  ``fixed``
         (parity tests) injects the draws: {"code_d", "onehot_d",
         "code_i", "onehot_i"} and, colored, {"color"} ((B, 3) or
-        (B, 1, 1, 3))."""
+        (B, 1, 1, 3)), at the global batch in a data-parallel step: the
+        draws are made there and this rank keeps its rows
+        (``parallel.local_rows``)."""
         g, d, e = state.g, state.d, state.e
         dev = img.device
         batch = img.shape[0]
@@ -139,10 +142,14 @@ def make_sprites_gan_step(config: SpritesGanConfig):
             code_d, onehot_d = f32["code_d"], f32["onehot_d"]
             code_i, onehot_i = f32["code_i"], f32["onehot_i"]
         else:
-            color = draw_color(batch, state.rng, dev) if config.colored else None
-            code_d, onehot_d = sample_inputs(state.rng, batch, dev)
-            code_i, onehot_i = sample_inputs(state.rng, batch, dev)
+            n = global_batch(batch)
+            color = draw_color(n, state.rng, dev) if config.colored else None
+            code_d, onehot_d = sample_inputs(state.rng, n, dev)
+            code_i, onehot_i = sample_inputs(state.rng, n, dev)
+        code_d, onehot_d, code_i, onehot_i = (
+            local_rows(t, batch) for t in (code_d, onehot_d, code_i, onehot_i))
         if config.colored:
+            color = local_rows(color, batch)
             img = colorize(img, color)
 
         # --- A. alignment (frozen encoder, no graph) ----------------------

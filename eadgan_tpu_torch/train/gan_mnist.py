@@ -34,6 +34,7 @@ import torch.nn.functional as F
 from eadgan_tpu_torch.losses import mse_loss, torch_cross_entropy
 from eadgan_tpu_torch.models import MnistDiscriminator, MnistEncoder, MnistGenerator
 from eadgan_tpu_torch.ops import warp_affine
+from eadgan_tpu_torch.parallel.mesh import global_batch, local_rows
 from eadgan_tpu_torch.train.config import MnistConfig
 from eadgan_tpu_torch.train.state import GanTrainState, adam
 from eadgan_tpu_torch.transforms import RPQMNXY, code_to_matrix, regularize_neural
@@ -80,7 +81,8 @@ def make_mnist_gan_step(config: MnistConfig):
     def step(state: GanTrainState, real_imgs: torch.Tensor, labels=None, fixed=None):
         """``real_imgs``: contiguous (B, 32, 32, 1) NHWC in [-1, 1];
         ``labels`` (the dataset's) are unused.  ``fixed`` (parity tests)
-        injects the draws: {"z", "sampled_labels", "code"}."""
+        injects the draws: {"z", "sampled_labels", "code"}, at the global
+        batch in a data-parallel step (``parallel.local_rows``)."""
         del labels
         g, d, e = state.g, state.d, state.e
         dev = real_imgs.device
@@ -90,11 +92,11 @@ def make_mnist_gan_step(config: MnistConfig):
             sampled_labels = torch.as_tensor(fixed["sampled_labels"], dtype=torch.long, device=dev)
             code = torch.as_tensor(fixed["code"], dtype=torch.float32, device=dev)
         else:
-            z = torch.randn(batch, config.latent_dim, generator=state.rng, device=dev)
-            sampled_labels = torch.randint(
-                0, config.n_classes, (batch,), generator=state.rng, device=dev
-            )
-            code = torch.rand(batch, config.code_dim, generator=state.rng, device=dev) * 2.0 - 1.0
+            n = global_batch(batch)
+            z = torch.randn(n, config.latent_dim, generator=state.rng, device=dev)
+            sampled_labels = torch.randint(0, config.n_classes, (n,), generator=state.rng, device=dev)
+            code = torch.rand(n, config.code_dim, generator=state.rng, device=dev) * 2.0 - 1.0
+        z, sampled_labels, code = (local_rows(t, batch) for t in (z, sampled_labels, code))
         label_input = F.one_hot(sampled_labels, config.n_classes).to(torch.float32)
 
         scaled_img = warp_affine(real_imgs, code_to_matrix(RPQMNXY, code), padding_mode="border")

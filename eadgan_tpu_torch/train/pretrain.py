@@ -22,6 +22,7 @@ import torch
 from eadgan_tpu_torch.losses import mse_loss
 from eadgan_tpu_torch.models import AffineApproximator, SpritesEncoderPxy
 from eadgan_tpu_torch.ops import warp_affine
+from eadgan_tpu_torch.parallel.mesh import global_batch, local_rows
 from eadgan_tpu_torch.train.config import ApproximatorConfig, PxyConfig
 from eadgan_tpu_torch.train.state import EncoderTrainState, adam
 from eadgan_tpu_torch.transforms import (
@@ -129,7 +130,8 @@ def make_pxy_step(config: PxyConfig):
     def step(state: EncoderTrainState, img: torch.Tensor, fixed=None):
         """``img``: contiguous (B, 64, 64, 1) NHWC in {0, 1}.  ``fixed``
         (parity tests) injects the draws: {"code"} and, colored,
-        {"color"} ((B, 3) or (B, 1, 1, 3))."""
+        {"color"} ((B, 3) or (B, 1, 1, 3)), at the global batch in a
+        data-parallel step (``parallel.local_rows``)."""
         dev = img.device
         batch = img.shape[0]
         if fixed is not None:
@@ -138,10 +140,12 @@ def make_pxy_step(config: PxyConfig):
             if color is not None:
                 color = torch.as_tensor(color, dtype=torch.float32, device=dev)
         else:
-            color = draw_color(batch, state.rng, dev) if config.colored else None
-            code = torch.rand(batch, config.code_dim, generator=state.rng, device=dev) * 2.0 - 1.0
+            n = global_batch(batch)
+            color = draw_color(n, state.rng, dev) if config.colored else None
+            code = torch.rand(n, config.code_dim, generator=state.rng, device=dev) * 2.0 - 1.0
+        code = local_rows(code, batch)
         if config.colored:
-            img = colorize(img, color)
+            img = colorize(img, local_rows(color, batch))
 
         trans_img = warp_affine(img, code_to_matrix(PXY, code[:, :3]), padding_mode=padding)
         if config.colored:

@@ -42,6 +42,13 @@ rp at batch 16 in windows of 4) hands ``on_shutdown`` the train state of
 a ``max_steps`` run to the same step, bit for bit
 (``tools/stop_check.py``).
 
+Data-parallel training in a NCCL group of one (``tools/dp_check.py``):
+``run_epochs`` chained for the gray rp and CelebA bf16 steps at batch 16
+in windows of 4, plain, ``data_parallel`` (its all-reduces captured in
+the graph) and with ``zero_opt``, bit-equal in every logged loss and
+state tensor; two NCCL ranks on the one card raise before either joins;
+in a gloo group on the card the chained engine raises.
+
 The int8 generator's kernels: ``int8_convt`` bit-equal to
 ``int8_convt_relu_plain`` (int32 sums exact on both sides, the same three
 float32 operations in the epilogue) at the three quantized layers'
@@ -381,6 +388,55 @@ def test_train_state_resumes_across_chain_settings(cuda, tmp_path, monkeypatch, 
     records = [json.loads(line) for line in (tmp_path / "b.jsonl").read_text().splitlines()]
     assert [r["step"] for r in records] == list(range(1, 15))
     assert all(math.isfinite(r[k]) for r in records for k in rp.METRIC_KEYS)
+
+
+@pytest.fixture
+def no_group():
+    import torch.distributed as dist
+
+    assert not dist.is_initialized()
+    yield
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("pipeline,dtype", [("rp", None), ("celeba", torch.bfloat16)],
+                         ids=["rp_f32", "celeba_bf16"])
+def test_world1_data_parallel_and_zero_bit_equal_to_plain(cuda, no_group, pipeline, dtype):
+    from eadgan_tpu_torch.tools.dp_check import run_dp_check
+
+    report = run_dp_check(pipeline, dtype, steps=8, chain=4, batch=16, time_windows=0)
+    assert report["backend"] == "nccl"
+    assert report["ok"], report
+    assert report["all_reduces_per_step"]["dp"] > 0
+
+
+def test_nccl_ranks_sharing_the_card_raise(cuda, no_group, monkeypatch):
+    import torch.distributed as dist
+
+    from eadgan_tpu_torch.parallel import multihost
+
+    monkeypatch.delenv("EADGAN_DIST_BACKEND", raising=False)
+    if torch.cuda.device_count() > 1:
+        pytest.skip("needs a machine with one card")
+    for rank in (0, 1):
+        with pytest.raises(RuntimeError, match="NCCL cannot run two ranks on one card"):
+            multihost.initialize("localhost:1", 2, rank, device="cuda")
+    assert not dist.is_initialized()
+
+
+def test_gloo_chain_on_the_card_raises(cuda, no_group, monkeypatch):
+    from eadgan_tpu_torch.parallel import join_local, multihost
+    from eadgan_tpu_torch.train.engine import run_epochs
+    from eadgan_tpu_torch.utils.profiler import build_step
+
+    monkeypatch.setenv("EADGAN_DIST_BACKEND", "gloo")
+    join_local("cuda")
+    assert multihost.backend() == "gloo"
+    state, step, data, prep = build_step("rp", 8)
+    with pytest.raises(ValueError, match="cannot be captured in a CUDA graph"):
+        run_epochs(n_epochs=1, data=data, batch_size=8, state=state, step_fn=step, on_batch=None,
+                   device="cuda", max_steps=2, chain=4, data_parallel=True, **prep)
 
 
 # the generator's int8 layers: (H, Cin, Cout) of the input of layers 1-3

@@ -19,10 +19,16 @@
 * The CLI on the CPU: a run with ``--keep_states 2`` saves the train
   state, and ``--resume auto`` continues from its step to the planned
   total.
+* The crash-during-save drill (``EADGAN_FAULT_KILL_SAVE_STEP``): a save
+  truncated mid-write exits 87, and under ``cli.supervise`` the relaunch
+  skips the truncated file and resumes from the previous one.
 """
 
 import json
 import os
+import subprocess
+import sys
+import textwrap
 import types
 import typing
 
@@ -279,3 +285,80 @@ def test_cli_keeps_states_and_resumes(tmp_path, monkeypatch):
     records = [json.loads(r) for r in second.read_text().splitlines()]
     assert [r["step"] for r in records] == [1, 2, 3]
     assert all(np.isfinite(r["d_loss"]) and np.isfinite(r["g_loss"]) for r in records)
+
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _env(**extra):
+    env = dict(os.environ, EADGAN_PLATFORM="cpu", OMP_NUM_THREADS="2",
+               PYTHONPATH=os.pathsep.join(filter(None, [REPO, os.environ.get("PYTHONPATH", "")])),
+               **extra)
+    for name in ("EADGAN_MP_NUM_PROCESSES", "EADGAN_MP_PROCESS_ID", "EADGAN_MP_COORDINATOR",
+                 "WORLD_SIZE", "RANK", "MASTER_ADDR"):
+        env.pop(name, None)
+    return env
+
+
+# --- the crash-during-save drill ----------------------------------------------------
+
+DRILL = textwrap.dedent(
+    """
+    import sys
+    from eadgan_tpu_torch.train.checkpoint import save_train_state
+    from eadgan_tpu_torch.train.config import PxyConfig
+    from eadgan_tpu_torch.train.pretrain import init_pxy_state
+    state = init_pxy_state(PxyConfig(batch_size=2), device="cpu")
+    save_train_state(sys.argv[1], "train_state", 1, state)
+    save_train_state(sys.argv[1], "train_state", 2, state)
+    print("unreachable", flush=True)
+    """
+)
+
+
+def test_fault_kill_mid_write_hook(tmp_path):
+    """At or after the fault step a train-state save writes half its
+    bytes to the final path and exits 87; restore falls back past it."""
+    from eadgan_tpu_torch.train.config import PxyConfig
+    from eadgan_tpu_torch.train.pretrain import init_pxy_state
+
+    script = tmp_path / "drill.py"
+    script.write_text(DRILL)
+    marker = tmp_path / "fault.marker"
+    proc = subprocess.run([sys.executable, str(script), str(tmp_path)], capture_output=True,
+                          text=True, timeout=120,
+                          env=_env(EADGAN_FAULT_KILL_SAVE_STEP="2",
+                                   EADGAN_FAULT_KILL_SAVE_MARKER=str(marker)))
+    assert proc.returncode == 87, proc.stderr[-2000:]
+    assert "unreachable" not in proc.stdout and marker.exists()
+    assert "fault injection: truncated mid-write" in proc.stdout
+    full, cut = (os.path.getsize(tmp_path / f"train_state_{i}.ckpt") for i in (1, 2))
+    assert cut == full // 2
+    _, step = ckpt.restore_latest(str(tmp_path), "train_state", init_pxy_state(PxyConfig(), device="cpu"))
+    assert step == 1
+
+
+def test_supervised_crash_during_save_resumes_from_the_previous_file(tmp_path):
+    """``cli.supervise pxy_color`` (a train state every 10 steps at
+    ``--sample_interval 1``) with the hook armed at step 10: the save at
+    step 10 is truncated and the trainer exits 87; the relaunch's
+    ``--resume auto`` skips that file, restores step 0's and trains on,
+    rewriting step 10's file whole; exit 0 (``tests/test_resume.py``'s
+    drill of the JAX package)."""
+    marker = tmp_path / "fault.marker"
+    proc = subprocess.run(
+        [sys.executable, "-m", "eadgan_tpu_torch.cli.supervise", "--max_restarts", "1",
+         "pxy_color", "--", "--batch_size", "4", "--sample_interval", "1", "--chain", "4",
+         "--max_steps", "12", "--data_dir", str(tmp_path), "--out_dir", str(tmp_path / "img"),
+         "--ckpt_dir", str(tmp_path)],
+        env=_env(EADGAN_SYNTH_POS="2", EADGAN_FAULT_KILL_SAVE_STEP="10",
+                 EADGAN_FAULT_KILL_SAVE_MARKER=str(marker)),
+        capture_output=True, text=True, timeout=300)
+    out, err = proc.stdout, proc.stderr
+    assert proc.returncode == 0, (out[-2000:], err[-3000:])
+    assert "fault injection: truncated mid-write" in out and marker.exists()
+    assert "child exited 87" in out and "finished cleanly after 1 restart(s)" in out
+    assert "encoder_pxy_color_train_state_10.ckpt failed to load" in err
+    assert "--resume auto: restored" in out and "encoder_pxy_color_train_state_0.ckpt" in out
+    assert ckpt.saved_steps(str(tmp_path), "encoder_pxy_color_train_state") == [10, 0]
+    torch.load(tmp_path / "encoder_pxy_color_train_state_10.ckpt", weights_only=True)  # whole now

@@ -12,6 +12,7 @@ import textwrap
 import time
 
 import pytest
+import torch
 
 from eadgan_tpu_torch.cli import supervise
 from eadgan_tpu_torch.utils.preempt import PREEMPT_EXIT_CODE
@@ -326,19 +327,29 @@ def _refusing_card(monkeypatch, name):
                          ids=["num_processes", "coordinator", "torchrun"])
 def test_trainer_refuses_multiprocess_env(name, env, monkeypatch, tmp_path):
     """A rank environment naming more than one process stops every trainer
-    before it touches the card (until multi-process training is ported)."""
+    run without ``--data_parallel`` before it touches the card, as the JAX
+    CLIs refuse it: each rank would train an independent model against
+    the same checkpoint paths.  The approximator has no such flag."""
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     module = _refusing_card(monkeypatch, name)
     with pytest.raises(SystemExit) as e:
         module.main(["--ckpt_dir", str(tmp_path)])
-    assert "multi-process training is not yet ported" in str(e.value.code)
+    want = ("has no --data_parallel" if name == "approximate_rpqmnxy"
+            else "pass --data_parallel")
+    assert "multi-process run requested" in str(e.value.code) and want in str(e.value.code)
 
 
 def test_single_process_env_is_no_multiprocess_run(monkeypatch):
+    import argparse
+
+    import torch.distributed as dist
+
     from eadgan_tpu_torch.cli.common import init_multiprocess
 
     monkeypatch.setenv("EADGAN_MP_NUM_PROCESSES", "1")
     monkeypatch.setenv("EADGAN_MP_COORDINATOR", "localhost:1234")
     monkeypatch.setenv("WORLD_SIZE", "1")
-    init_multiprocess()  # no error
+    opt = argparse.Namespace(data_parallel=False, zero_opt=False)
+    assert init_multiprocess(opt, lambda: torch.device("cpu")) == torch.device("cpu")
+    assert not dist.is_initialized()  # no group joined

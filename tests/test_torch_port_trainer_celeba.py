@@ -51,16 +51,16 @@ def test_cli_trains_on_cpu(tmp_path, monkeypatch):
 
 # the run flags ported since these tests were written, with valid values
 PORTED_FLAGS = {"--profile_dir": ["trace"], "--preempt_save": ["off"], "--watchdog": ["1"],
-                "--no_download": []}
+                "--no_download": [], "--data_parallel": [], "--zero_opt": []}
 
 
 @pytest.mark.parametrize("flag", ["--profile_dir", "--zero_opt", "--preempt_save", "--watchdog"])
 def test_cli_rejects_later_slice_flags(flag, capsys, monkeypatch):
-    """Argparse rejects the flags of a later slice of the port (scale-out's
-    ``--data_parallel`` and ``--zero_opt``, exit 2).  The run flags ported
-    since (``--profile_dir``, ``--preempt_save``, ``--watchdog``,
-    ``--no_download``) are accepted: with a multi-process rank environment
-    the CLI then stops at its refusal of it, before the card."""
+    """The run flags of the later slices of the port (``--profile_dir``,
+    ``--preempt_save``, ``--watchdog``, ``--no_download``, and scale-out's
+    ``--data_parallel`` and ``--zero_opt``) are all accepted by argparse
+    now: with a rank environment that names a gang without its
+    coordinator, the CLI stops at its refusal of it, before the card."""
     monkeypatch.setenv("EADGAN_MP_NUM_PROCESSES", "2")
     with pytest.raises(SystemExit) as e:
         cli.main([flag, *PORTED_FLAGS.get(flag, ["1"])])

@@ -167,17 +167,17 @@ def test_batch_sequence_of_3d_data_matches_jax_engine(max_steps, start):
 
 # the run flags ported since these tests were written, with valid values
 PORTED_FLAGS = {"--profile_dir": ["trace"], "--preempt_save": ["off"], "--watchdog": ["1"],
-                "--no_download": []}
+                "--no_download": [], "--data_parallel": [], "--zero_opt": []}
 
 
 @pytest.mark.parametrize("cli", [pxy, pxy_color, rp, rp_color], ids=lambda m: m.__name__.rsplit(".", 1)[-1])
 @pytest.mark.parametrize("flag", ["--profile_dir", "--data_parallel", "--zero_opt", "--preempt_save", "--watchdog"])
 def test_cli_rejects_later_slice_flags(cli, flag, monkeypatch):
-    """Argparse rejects the flags of a later slice of the port (scale-out's
-    ``--data_parallel`` and ``--zero_opt``, exit 2).  The run flags ported
-    since (``--profile_dir``, ``--preempt_save``, ``--watchdog``,
-    ``--no_download``) are accepted: with a multi-process rank environment
-    the CLI then stops at its refusal of it, before the card."""
+    """The run flags of the later slices of the port (``--profile_dir``,
+    ``--preempt_save``, ``--watchdog``, ``--no_download``, and scale-out's
+    ``--data_parallel`` and ``--zero_opt``) are all accepted by argparse
+    now: with a rank environment that names a gang without its
+    coordinator, the CLI stops at its refusal of it, before the card."""
     monkeypatch.setenv("EADGAN_MP_NUM_PROCESSES", "2")
     with pytest.raises(SystemExit) as e:
         cli.main([flag, *PORTED_FLAGS.get(flag, ["1"])])
