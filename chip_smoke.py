@@ -3,7 +3,7 @@
 NVIDIA H100.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It needs one
-CUDA card and the CUDA toolkit (nvcc) and runs seven phases, failing with
+CUDA card and the CUDA toolkit (nvcc) and runs eight phases, failing with
 a non-zero exit on the first that fails:
 
 1. environment: card name and power limit, torch/CUDA versions, TF32
@@ -133,7 +133,26 @@ a non-zero exit on the first that fails:
    a gang started directly: both exit 86 at one step with one final train
    state, which ``--resume auto`` continues in one process.  The
    data-parallel runs' warp launches are the paths ``celeba_dp`` and
-   ``rp_gang`` of the ``kernels`` line.
+   ``rp_gang`` of the ``kernels`` line;
+8. the model axis (``parallel.shard_model_params``, the CelebA step at
+   its published widths on a (data, model) grid, ``tools/tp_check.py``),
+   TF32 off, cuDNN deterministic: (a) a NCCL group of one as a (1, 1)
+   grid, CelebA bf16 at batch 128 for 16 steps from copies of one state,
+   plain against the grid's step: every loss and state tensor bit-equal
+   and no model-axis collective; (b) two ranks sharing the card over
+   gloo as (1, 2), CelebA f32 at a global batch of 128 for 4 steps
+   against one rank at the JAX 2-D test's bars (losses rtol 2e-4 / atol
+   1e-5 at step 0, 1e-3 and 1e-2 after; G's parameters after step 0
+   within 2.1 Adam steps of ``opt_g`` and ``opt_info`` together, under
+   0.5% beyond half of one; D's by the same rule reported), with the bytes of
+   parameters and Adam moments each rank holds and the bytes its
+   model-axis collectives move a step; (c) four ranks as (2, 2) with
+   ZeRO-1, global batch 32, 3 steps with a collective save after 2,
+   whose file a (1, 2) grid restores, re-cuts and saves again bit for
+   bit, then steps once against the writer's third step.  Every rank
+   must exit 0.  The grids' warp launches (one a step on each rank's
+   rows) are the paths ``celeba_tp`` ((a) and (b)) and
+   ``celeba_tp_zero`` ((c), the resumed ranks included).
 
 Its last lines are the ``{"kernels": [...]}`` record, the ``nvidia-smi``
 name/power-limit line, and ``{"ok": true, "device": {...}}``.
@@ -2032,6 +2051,111 @@ def phase_data_parallel(torch):
     return {"celeba_dp": celeba_dp, "rp_gang": rp_gang}
 
 
+# --- phase 8: the model axis ----------------------------------------------------
+
+TP_WORLD1_STEPS, TP_WORLD1_BATCH = 16, 128  # (a): CelebA bf16 on a (1, 1) grid
+TP_SHARED = dict(grid=(1, 2), batch=128, steps=4)  # (b), f32 as every tp_check run
+TP_ZERO = dict(grid=(2, 2), zero_opt=True, batch=32, steps=3, save_at=2,  # (c)
+               resume_grid=(1, 2))
+
+
+def tp_world1(torch):
+    """(a) A NCCL group of one as a (1, 1) grid: the CelebA bf16 step at
+    batch 128 for 16 steps from copies of one state, plain against
+    ``data_parallel_step(step, mesh)`` after ``replicate`` and
+    ``shard_model_params`` (which cut nothing at model 1), under
+    deterministic cuDNN: every loss and state tensor bit-equal, no
+    model-axis collective.  Its warp launches (one a step) count toward
+    the path ``celeba_tp``."""
+    import torch.distributed as dist
+
+    from eadgan_tpu_torch import parallel
+    from eadgan_tpu_torch.ops import stn_cuda
+    from eadgan_tpu_torch.parallel.mesh import model_collectives, reset_model_collectives
+    from eadgan_tpu_torch.tools.chain_check import _cudnn_deterministic
+    from eadgan_tpu_torch.tools.dp_check import _equal
+    from eadgan_tpu_torch.tools.tp_check import inputs
+    from eadgan_tpu_torch.train.chain import snapshot_state
+    from eadgan_tpu_torch.train.checkpoint import train_state_payload
+    from eadgan_tpu_torch.train.config import CelebaConfig
+    from eadgan_tpu_torch.train.gan_celeba import init_celeba_gan_state, make_celeba_gan_step
+
+    check(not dist.is_initialized(), "a process group is still joined")
+    device = parallel.join_local("cuda")
+    try:
+        check(parallel.multihost.backend() == "nccl", "the group of one is not NCCL")
+        mesh = parallel.default_mesh(1)
+        config = CelebaConfig(batch_size=TP_WORLD1_BATCH)
+        state = init_celeba_gan_state(config, device=device, seed=0, dtype=torch.bfloat16)
+        twin = snapshot_state(state)
+        parallel.replicate(twin)
+        parallel.shard_model_params(mesh, twin)
+        imgs = torch.from_numpy(inputs(TP_WORLD1_BATCH, 0)[0]).to(device)
+        plain, grid = make_celeba_gan_step(config), parallel.data_parallel_step(
+            make_celeba_gan_step(config), mesh)
+        losses, equal, launches = [], True, 0
+        with _cudnn_deterministic():
+            reset_model_collectives()
+            for _ in range(TP_WORLD1_STEPS):
+                state, m = plain(state, imgs)
+                before = stn_cuda.launch_count  # the grid's launches only
+                twin, m_grid = grid(twin, imgs)
+                launches += stn_cuda.launch_count - before
+                equal &= all(torch.equal(m[k], m_grid[k]) for k in m)
+                losses.append({k: float(v) for k, v in m_grid.items()})
+            torch.cuda.synchronize()
+        collectives = model_collectives()
+        states_equal = _equal(train_state_payload(state), train_state_payload(twin))
+    finally:
+        dist.destroy_process_group()
+    record = {"tp_world1": "celeba", "grid": [1, 1], "compute": "bf16", "batch": TP_WORLD1_BATCH,
+              "steps": TP_WORLD1_STEPS, "losses_equal": bool(equal), "states_equal": states_equal,
+              "model_collectives": collectives, "warp_launches": launches,
+              "last_losses": losses[-1]}
+    emit(record)
+    check(equal and states_equal, "a (1, 1) grid against no grid: not bit-equal")
+    check(all(v["count"] == 0 for v in collectives.values()),
+          f"a (1, 1) grid issued model collectives {collectives}")
+    check(launches == TP_WORLD1_STEPS, f"the (1, 1) grid launched the warp {launches} times")
+    return launches, record
+
+
+def tp_gang(torch, label, settings):
+    """``tools/tp_check.py`` on the card with ``settings``: ranks sharing
+    the card over gloo, the CelebA f32 step per step against one rank in
+    this process at the JAX 2-D test's bars, the per-rank bytes and the
+    model-axis collectives a step.  Every rank must exit 0; the warp's
+    launches of all ranks (one a step each, resumed ranks included) are
+    returned for the ``kernels`` line."""
+    from eadgan_tpu_torch.tools.tp_check import run_tp_check
+
+    report = run_tp_check(device="cuda", **settings)
+    emit({label: report})
+    steps = settings["steps"]
+    world = settings["grid"][0] * settings["grid"][1]
+    launches = report["warp_launches_by_rank"]
+    check(report["ok"], f"{label}: the grid against one rank {report}")
+    check(report["backend"] == "gloo", f"{label}: the shared card ran {report['backend']}")
+    check(sorted(launches.values()) == [steps] * world, f"{label}: warp launches {launches}")
+    total = sum(launches.values())
+    if "resume" in report:
+        resumed = report["resume"]["warp_launches_by_rank"]
+        check(sorted(resumed.values()) == [steps - settings["save_at"]] * len(resumed),
+              f"{label}: resumed warp launches {resumed}")
+        total += sum(resumed.values())
+    return total, report
+
+
+def phase_model_axis(torch):
+    """(a), (b), (c); returns the warp's launches on the two new paths."""
+    t0 = time.perf_counter()
+    world1, _ = tp_world1(torch)
+    shared, _ = tp_gang(torch, "tp_shared_1x2", TP_SHARED)
+    zero, _ = tp_gang(torch, "tp_zero_2x2_resume_1x2", TP_ZERO)
+    emit({"model_axis_phase_s": time.perf_counter() - t0})
+    return {"celeba_tp": world1 + shared, "celeba_tp_zero": zero}
+
+
 def main() -> None:
     import torch
 
@@ -2071,10 +2195,14 @@ def main() -> None:
           "data-parallel vs ZeRO-1, bit for bit and timed; the shared-card refusals; two gray rp "
           "ranks sharing the card over gloo against one rank, and their gang stop)", flush=True)
     warp_by_path.update(phase_data_parallel(torch))
+    print("== phase 8: the model axis (CelebA bf16 on a (1, 1) NCCL grid vs no grid, bit for bit; "
+          "two gloo ranks sharing the card as (1, 2) and four as (2, 2) with ZeRO-1 against one "
+          "rank, the (2, 2) save resumed as (1, 2))", flush=True)
+    warp_by_path.update(phase_model_axis(torch))
     # the warp's paths by the Pallas body the TPU took there: _kernel for
     # C * W > 128 (CelebA, colored dSprites), _kernel_pair otherwise
     paths = {"warp_affine": ("celeba", "pxy_color", "rp_color", "score_color", "celeba_stop",
-                             "celeba_dp"),
+                             "celeba_dp", "celeba_tp", "celeba_tp_zero"),
              "warp_affine_pair": ("pxy", "rp", "rp_resumed_bf16", "rp_long", "mnist", "score_gray",
                                   "rp_gang")}
     check(sorted(p for v in paths.values() for p in v) == sorted(warp_by_path),

@@ -29,6 +29,19 @@ They update their state in training mode only, and not inside
 the MNIST encoder's, normalizes with batch statistics and updates them
 in eval mode too).  :func:`upsample_nearest` is torch's
 ``nn.Upsample(scale_factor=2)``.  Layout is NCHW.
+
+The five weight layers run column-parallel once
+``parallel.shard_model_params`` has cut their weight over a model axis
+(``model_shard`` set; ``out_dim`` is the weight's output dimension): the
+input passes ``copy_to_model``, the conv or product runs on this rank's
+output rows without the bias, ``gather_from_model`` puts the output
+features back together, and the full, replicated bias is added after
+(so in bf16 it is rounded where flax rounds it, and its gradient is the
+replicated one with no collective).  Spectral norm on a sharded weight
+takes its power step on the float32 shard with partial products summed
+over the model group (:meth:`_SpectralNorm.normalized_weight`); ``u``
+and ``sigma`` stay full and replicated.  Unsharded, no layer issues a
+model collective.
 """
 
 from __future__ import annotations
@@ -39,7 +52,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from eadgan_tpu_torch.parallel.mesh import axis_size, global_mean
+from eadgan_tpu_torch.parallel.mesh import (
+    axis_size,
+    copy_to_model,
+    gather_from_model,
+    global_mean,
+    reduce_from_model,
+)
 
 __all__ = [
     "TorchConv",
@@ -68,8 +87,27 @@ def _add_bias(y: torch.Tensor, bias, dtype) -> torch.Tensor:
     return y + bias.to(dtype)[None, :, None, None]
 
 
+def _column_parallel(x, weight, bias, dt, shard, op, dim: int) -> torch.Tensor:
+    """``op(x, weight)`` with ``weight`` this rank's output rows of a
+    model-sharded layer: ``x`` copied to the model group, ``op`` in the
+    compute type ``dt`` without the bias, the outputs gathered along
+    ``dim``, then the full bias added in ``dt``."""
+    x = copy_to_model(x, shard.mesh)
+    if dt is not None:
+        x, weight = x.to(dt), weight.to(dt)
+    y = gather_from_model(op(x, weight), dim, shard.mesh)
+    if bias is None:
+        return y
+    shape = [1] * y.dim()
+    shape[dim] = -1
+    return y + (bias if dt is None else bias.to(dt)).view(shape)
+
+
 class TorchConv(nn.Conv2d):
     """``nn.Conv2d`` with a compute ``dtype`` (None: float32)."""
+
+    out_dim = 0
+    model_shard = None
 
     def __init__(self, in_channels, out_channels, kernel_size, stride=1, padding=0, dtype=None):
         super().__init__(in_channels, out_channels, kernel_size, stride, padding)
@@ -77,6 +115,9 @@ class TorchConv(nn.Conv2d):
 
     def conv(self, x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
+        if self.model_shard is not None:
+            return _column_parallel(x, weight, self.bias, dt, self.model_shard,
+                                    lambda a, w: self._conv_forward(a, w, None), 1)
         if dt is None:
             return self._conv_forward(x, weight, self.bias)
         y = self._conv_forward(x.to(dt), weight.to(dt), None)
@@ -89,12 +130,19 @@ class TorchConv(nn.Conv2d):
 class TorchConvTranspose(nn.ConvTranspose2d):
     """``nn.ConvTranspose2d`` with a compute ``dtype`` (None: float32)."""
 
+    out_dim = 1
+    model_shard = None
+
     def __init__(self, in_channels, out_channels, kernel_size, stride=1, padding=0, dtype=None):
         super().__init__(in_channels, out_channels, kernel_size, stride, padding)
         self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
+        if self.model_shard is not None:
+            return _column_parallel(
+                x, self.weight, self.bias, dt, self.model_shard,
+                lambda a, w: F.conv_transpose2d(a, w, None, self.stride, self.padding), 1)
         if dt is None:
             return super().forward(x)
         y = F.conv_transpose2d(
@@ -108,12 +156,18 @@ class TorchDense(nn.Linear):
     at flax ``Dense``'s points: input, weight and bias cast to ``dtype``,
     the product without the bias, then the bias added in ``dtype``."""
 
+    out_dim = 0
+    model_shard = None
+
     def __init__(self, in_features, out_features, dtype=None):
         super().__init__(in_features, out_features)
         self.compute_dtype = dtype
 
     def linear(self, x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
+        if self.model_shard is not None:
+            return _column_parallel(x, weight, self.bias, dt, self.model_shard,
+                                    F.linear, x.dim() - 1)
         if dt is None:
             return F.linear(x, weight, self.bias)
         return F.linear(x.to(dt), weight.to(dt)) + self.bias.to(dt)
@@ -134,6 +188,14 @@ class _SpectralNorm:
     is 0).  ``u`` (shape (out,)) and ``sigma`` are stored only in
     training mode; in eval mode the step is still taken, from the stored
     ``u``, and discarded.
+
+    On a model-sharded weight (this rank's rows of W) the same step in
+    float32: ``v = l2n(sum over the group of u[rows] W_rows^T)``, this
+    rank's ``W_rows v`` normalized by the group's sum of squares, ``sigma``
+    the group's sum of the partial dot products (:func:`reduce_from_model`,
+    whose backward is the identity) passed through :func:`copy_to_model`
+    before it divides this rank's rows (each rank's share of the gradient
+    by ``sigma`` is summed there), and the stored ``u`` gathered whole.
     """
 
     def _register_sn(self, out_features: int) -> None:
@@ -143,15 +205,28 @@ class _SpectralNorm:
 
     def normalized_weight(self) -> torch.Tensor:
         w = self.weight
-        w_mat = w.reshape(w.shape[0], -1)  # (out, K)
-        with torch.no_grad():
-            v = _l2n(self.u @ w_mat)  # (K,)
-            u = _l2n(w_mat @ v)  # (out,)
-        sigma = torch.dot(w_mat @ v, u)
+        w_mat = w.reshape(w.shape[0], -1)  # (out, K); this rank's rows when sharded
+        shard = self.model_shard
+        if shard is None:
+            with torch.no_grad():
+                v = _l2n(self.u @ w_mat)  # (K,)
+                u = _l2n(w_mat @ v)  # (out,)
+            sigma = torch.dot(w_mat @ v, u)
+        else:
+            mesh = shard.mesh
+            with torch.no_grad():
+                v = _l2n(reduce_from_model(self.u[shard.rows] @ w_mat, mesh))
+                u = w_mat @ v
+                u = u * torch.rsqrt(reduce_from_model((u * u).sum(), mesh) + _SN_EPS)
+            sigma = reduce_from_model(torch.dot(w_mat @ v, u), mesh)
         if self.training and self.update_stats:
             with torch.no_grad():
-                self.u.copy_(u)
+                self.u.copy_(u if shard is None else gather_from_model(u, 0, shard.mesh))
                 self.sigma.copy_(sigma)
+        if shard is not None:
+            # each rank divides only its rows by sigma, so the loss's gradient
+            # by sigma is a sum over the group: copy's backward sums it
+            sigma = copy_to_model(sigma, shard.mesh)
         return w / torch.where(sigma != 0, sigma, torch.ones_like(sigma))
 
 
@@ -193,9 +268,10 @@ class TorchBatchNorm(nn.Module):
     input's dtype.  ``state_dict`` keys are those of ``nn.BatchNorm2d``.
     Inside a data-parallel step (``parallel.data_axis``) the batch
     statistics are those of the global batch: the ranks' means of x and
-    x^2 averaged over the ranks in one all-reduce, whose backward
-    all-reduces their gradient, as the JAX package's means over a sharded
-    batch are under SPMD.
+    x^2 averaged over the data axis (the grid's data group) in one
+    all-reduce, whose backward all-reduces their gradient, as the JAX
+    package's means over a sharded batch are under SPMD.  A BatchNorm
+    after a model-sharded layer sees its gathered, full channels.
     """
 
     def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.9,

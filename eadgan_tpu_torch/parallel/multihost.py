@@ -8,8 +8,11 @@ port does over processes:
 * every process calls :func:`initialize` before it touches the card (a
   no-op outside a cluster); it joins one ``torch.distributed`` process
   group over ``tcp://`` and returns the rank's device;
+* :func:`default_mesh` lays the ranks out as a (data, model) grid, the
+  JAX ``mesh.py::default_mesh`` reshape, with a process group for each
+  row and each column of it;
 * every rank computes the same global batch order from ``--seed`` and
-  gathers only its slice of each batch (:func:`host_batch_slice`);
+  gathers only its data slice of each batch (:func:`host_batch_slice`);
 * one process (rank 0) writes files and log lines
   (:func:`is_coordinator`); a final save is collective
   (:func:`save_on_coordinator`), and a graceful stop is a gang decision
@@ -26,6 +29,7 @@ collective cannot be captured in a CUDA graph).
 
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import itertools
 import os
@@ -35,8 +39,10 @@ import torch
 import torch.distributed as dist
 
 __all__ = [
+    "Mesh",
     "any_process_flag",
     "backend",
+    "default_mesh",
     "initialize",
     "join_local",
     "host_batch_slice",
@@ -222,15 +228,65 @@ def process_index() -> int:
     return dist.get_rank() if dist.is_initialized() else 0
 
 
-def host_batch_slice(global_batch: int) -> slice:
-    """The half-open rows of the global batch this rank feeds.  Raises
-    when the global batch does not divide over the ranks: a silent
-    truncation would train at a smaller batch than configured."""
-    n = process_count()
+@dataclasses.dataclass(frozen=True, eq=False)
+class Mesh:
+    """This rank's place on a (data, model) grid of ``data * model``
+    ranks: rank ``r`` sits at data index ``r // model`` and model index
+    ``r % model``.  ``data_group`` joins the ranks of this rank's model
+    index (they hold the same shards and different rows), ``model_group``
+    those of its data index (the same rows, different shards); None is the
+    default group (the world at ``model == 1``) or, for ``model_group``
+    at ``model == 1``, no group at all (nothing is sharded).  A copy of a
+    mesh is the mesh itself: its groups are the process's handles."""
+
+    data: int
+    model: int
+    data_index: int
+    model_index: int
+    data_group: Optional[object] = None
+    model_group: Optional[object] = None
+
+    def __deepcopy__(self, memo):
+        return self
+
+
+def default_mesh(model_parallel: int = 1) -> Mesh:
+    """The (data, model) grid over the process group (one process
+    without a group): the world's ranks reshaped row-major to
+    ``(world // model_parallel, model_parallel)``, as the JAX
+    ``default_mesh`` reshapes its devices, so a model group is adjacent
+    ranks (adjacent cards).  Raises ``ValueError`` when the world does
+    not divide.  With ``model_parallel > 1`` it builds every data group
+    and every model group with ``dist.new_group``, a collective: every
+    rank calls it, in the same order, or the gang hangs."""
+    world, rank = process_count(), process_index()
+    if model_parallel < 1 or world % model_parallel != 0:
+        raise ValueError(f"{world} processes not divisible by model_parallel={model_parallel}")
+    data = world // model_parallel
+    mesh = dict(data=data, model=model_parallel, data_index=rank // model_parallel,
+                model_index=rank % model_parallel)
+    if model_parallel == 1:
+        return Mesh(**mesh)
+    if not dist.is_initialized():
+        raise RuntimeError("a model axis needs a process group (parallel.initialize)")
+    data_group, _ = dist.new_subgroups_by_enumeration(
+        [[d * model_parallel + m for d in range(data)] for m in range(model_parallel)])
+    model_group, _ = dist.new_subgroups_by_enumeration(
+        [[d * model_parallel + m for m in range(model_parallel)] for d in range(data)])
+    return Mesh(**mesh, data_group=data_group, model_group=model_group)
+
+
+def host_batch_slice(global_batch: int, mesh: Optional[Mesh] = None) -> slice:
+    """The half-open rows of the global batch this rank feeds: its data
+    index's slice, the same on every rank of a model group (the whole
+    world is the data axis without a ``mesh``).  Raises when the global
+    batch does not divide over the data axis: a silent truncation would
+    train at a smaller batch than configured."""
+    n, index = (process_count(), process_index()) if mesh is None else (mesh.data, mesh.data_index)
     if global_batch % n != 0:
-        raise ValueError(f"global batch {global_batch} not divisible by process count {n}")
+        raise ValueError(f"global batch {global_batch} not divisible by data axis size {n}")
     per_rank = global_batch // n
-    start = process_index() * per_rank
+    start = index * per_rank
     return slice(start, start + per_rank)
 
 
@@ -289,9 +345,10 @@ def save_on_coordinator(path: str, state) -> None:
     """Write the train state ``state`` to ``path`` from rank 0 only, then a
     barrier, so no rank runs past an incomplete file.  Every rank must
     call it: ZeRO-1 moments (``parallel/zero.py``), of which each rank
-    holds a slice, are first gathered, a collective.  The file equals a
-    one-process save and restores under any process count."""
-    from eadgan_tpu_torch.parallel.zero import gathering
+    holds a slice, and model shards (``parallel/mesh.py``) are first
+    gathered, collectives.  The file equals a one-process save and
+    restores under any process count and any grid."""
+    from eadgan_tpu_torch.parallel.mesh import gathering
     from eadgan_tpu_torch.train.checkpoint import save_checkpoint, train_state_payload
 
     with gathering():

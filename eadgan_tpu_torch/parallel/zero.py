@@ -23,54 +23,52 @@ for bit (the JAX package's reduce-scatter lets the summation order
 differ, hence its rtol of 2e-4; this design does not need it).  A saved
 file always holds the full, gathered moments in ``torch.optim.Adam``'s
 own layout, and restores under any world size, with or without ZeRO.
+
+On a (data, model) grid ZeRO-1 composes with the model shard, as the
+JAX package's ``base`` spec does: a sharded weight's moments keep their
+model cut and gain a data cut on another dimension (:func:`zero_spec`'s
+``exclude``), so each rank holds 1/(data * model) of them; the slices
+are cut and gathered over the grid's data group.
 """
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
-import threading
 from typing import Dict, Optional
 
 import torch
 import torch.distributed as dist
 
-from eadgan_tpu_torch.parallel.mesh import mean_gradients
-from eadgan_tpu_torch.parallel.multihost import process_count, process_index
+from eadgan_tpu_torch.parallel.mesh import (
+    _check_gathering,
+    gathering,
+    mean_gradients,
+    model_shards,
+)
+from eadgan_tpu_torch.parallel.multihost import Mesh, process_count, process_index
 
 __all__ = ["zero_spec", "ZeroAdam", "zero_place", "gathering"]
 
-_GATHER = threading.local()
 
-
-def zero_spec(shape, n_shards: int, min_elems: int = 1024) -> Optional[int]:
-    """The dimension of a leaf of ``shape`` that is sharded over
-    ``n_shards`` ranks: the largest one that divides by ``n_shards``
-    (the first of equals), or None for a scalar, a leaf of fewer than
-    ``min_elems`` elements (biases: sharding buys nothing and costs a
-    collective) or a leaf no dimension of which divides."""
+def zero_spec(shape, n_shards: int, min_elems: int = 1024,
+              exclude: Optional[int] = None) -> Optional[int]:
+    """The dimension of a leaf of global ``shape`` that is sharded over
+    ``n_shards`` data ranks: the largest one that divides by ``n_shards``
+    (the first of equals) other than ``exclude`` (the model shard's
+    dimension: the JAX ``base`` spec's claimed axis), or None for a
+    scalar, a leaf of fewer than ``min_elems`` elements (biases: sharding
+    buys nothing and costs a collective) or a leaf no free dimension of
+    which divides."""
     shape = tuple(shape)
     size = 1
     for d in shape:
         size *= d
     if not shape or size < min_elems:
         return None
-    candidates = [i for i, d in enumerate(shape) if d % n_shards == 0]
+    candidates = [i for i, d in enumerate(shape) if d % n_shards == 0 and i != exclude]
     if not candidates:
         return None
     return max(candidates, key=lambda i: shape[i])
-
-
-@contextlib.contextmanager
-def gathering():
-    """Inside the block, on this thread, :meth:`ZeroAdam.state_dict` may
-    gather the moments over the ranks (a collective): every rank must be
-    in it (``multihost.save_on_coordinator``)."""
-    _GATHER.on = True
-    try:
-        yield
-    finally:
-        _GATHER.on = False
 
 
 class ZeroAdam:
@@ -82,14 +80,22 @@ class ZeroAdam:
     ``step``, ``state_dict`` and ``load_state_dict``."""
 
     def __init__(self, opt: torch.optim.Adam, rank: Optional[int] = None,
-                 world: Optional[int] = None):
-        self.rank = process_index() if rank is None else rank
-        self.world = process_count() if world is None else world
+                 world: Optional[int] = None, mesh: Optional[Mesh] = None,
+                 shards: Optional[Dict] = None):
+        if mesh is None:
+            self.rank = process_index() if rank is None else rank
+            self.world = process_count() if world is None else world
+            self.group = None
+        else:
+            self.rank, self.world, self.group = mesh.data_index, mesh.data, mesh.data_group
+        shards = shards or {}
         self.template = type(opt)([dict(g, params=list(g["params"])) for g in opt.param_groups],
                                   **opt.defaults)
         self.param_groups = self.template.param_groups
         self.params = [p for g in self.param_groups for p in g["params"]]
-        self.dims = [zero_spec(p.shape, self.world) for p in self.params]
+        # on the global shape, the model shard's dimension excluded
+        self.dims = [zero_spec(shards[id(p)].full_shape, self.world, exclude=shards[id(p)].dim)
+                     if id(p) in shards else zero_spec(p.shape, self.world) for p in self.params]
         self.shards = []
         for i, p in enumerate(self.params):
             shard = self._slice(p, i).detach().clone()
@@ -141,24 +147,23 @@ class ZeroAdam:
             full.copy_(shard)
             return
         parts = [torch.empty_like(shard) for _ in range(self.world)]
-        dist.all_gather(parts, shard.contiguous())
+        dist.all_gather(parts, shard.contiguous(), group=self.group)
         full.copy_(torch.cat(parts, dim=d))
 
     def _full(self, shard: torch.Tensor, d: Optional[int]) -> torch.Tensor:
         if d is None or self.world == 1:
             return shard
-        if not getattr(_GATHER, "on", False):
-            raise RuntimeError(
-                "ZeRO moments are sliced over the ranks: gather them on every rank at once "
-                "(parallel.save_on_coordinator / checkpoint.save_train_state_sync)")
+        _check_gathering()
         parts = [torch.empty_like(shard) for _ in range(self.world)]
-        dist.all_gather(parts, shard.contiguous())
+        dist.all_gather(parts, shard.contiguous(), group=self.group)
         return torch.cat(parts, dim=d)
 
     def state_dict(self) -> Dict:
-        """The full state in ``torch.optim.Adam``'s layout (the moments
-        gathered over the ranks): a file of it loads into a plain Adam over
-        the same parameters, or a :class:`ZeroAdam` of any world size."""
+        """The state in ``torch.optim.Adam``'s layout, the moments gathered
+        over the data axis (those of a model-sharded parameter stay its
+        model shard's: ``mesh.gather_optimizer_state`` gathers the rest):
+        a file of it loads into a plain Adam over the same parameters, or
+        a :class:`ZeroAdam` of any world size."""
         out = self.template.state_dict()
         state = {}
         for i, shard in enumerate(self.shards):
@@ -192,10 +197,15 @@ class ZeroAdam:
             self.inner.state[shard] = entry
 
 
-def zero_place(state) -> None:
-    """Replace every ``opt*`` optimizer of a replicated train state with a
-    :class:`ZeroAdam` of it, in place; models, generator and step stay."""
+def zero_place(state, mesh: Optional[Mesh] = None) -> None:
+    """Replace every ``opt*`` optimizer of a replicated (and, on a grid,
+    model-sharded) train state with a :class:`ZeroAdam` of it over
+    ``mesh``'s data axis (the process group without one), in place;
+    models, generator and step stay."""
+    shards = model_shards(state)
+    if shards and mesh is None:
+        raise ValueError("a model-sharded state needs its mesh: zero_place(state, mesh)")
     for f in dataclasses.fields(state):
         value = getattr(state, f.name)
         if f.name.startswith("opt") and isinstance(value, torch.optim.Optimizer):
-            setattr(state, f.name, ZeroAdam(value))
+            setattr(state, f.name, ZeroAdam(value, mesh=mesh, shards=shards))

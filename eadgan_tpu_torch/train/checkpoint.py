@@ -38,6 +38,13 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 from torch import nn
 
+from eadgan_tpu_torch.parallel.mesh import (
+    gather_optimizer_state,
+    gathered_state_dict,
+    has_model_shards,
+    model_shards,
+)
+
 __all__ = [
     "save_checkpoint",
     "save_model",
@@ -55,8 +62,10 @@ __all__ = [
 
 def cpu_state_dict(model: nn.Module) -> Dict[str, torch.Tensor]:
     """``model.state_dict()`` with every tensor detached and on the CPU,
-    so the file loads on any machine."""
-    return {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    so the file loads on any machine.  The weights of a model sharded
+    over a model axis are gathered whole (``parallel.mesh.gathering``:
+    a collective every rank must enter; outside it, this raises)."""
+    return {k: v.detach().cpu() for k, v in gathered_state_dict(model).items()}
 
 
 def _maybe_fault_kill_mid_write(path: str, obj: Any) -> None:
@@ -160,14 +169,18 @@ def train_state_payload(state) -> Dict[str, Any]:
     the host (models' and optimizers' state_dicts on the CPU, the
     generator's state, the step).  On the card the copies run on the
     current stream, after the work already issued there.  A ZeRO
-    optimizer (``parallel/zero.py``) gives its full, gathered state, so
-    the file is that of a replicated run."""
+    optimizer (``parallel/zero.py``) gives its state gathered over the
+    data axis, and model shards (weights and their moments) are
+    gathered whole, so the file is that of a one-rank run; with shards
+    or slices, only inside ``gathering()`` on every rank."""
     out = {}
+    shards = model_shards(state)
     for name, value in _fields(state).items():
         if isinstance(value, nn.Module):
             out[name] = cpu_state_dict(value)
         elif _is_optimizer(value):
-            out[name] = _cpu(value.state_dict())
+            params = [p for group in value.param_groups for p in group["params"]]
+            out[name] = _cpu(gather_optimizer_state(value.state_dict(), params, shards))
         elif isinstance(value, torch.Generator):
             out[name] = value.get_state()
         else:
@@ -194,7 +207,13 @@ def _load_optimizer(opt: torch.optim.Optimizer, saved: Dict[str, Any]) -> None:
 
 
 def _apply(state, payload: Dict[str, Any]):
-    """Load a train-state payload into ``state`` in place; returns it."""
+    """Load a train-state payload into ``state`` in place; returns it.
+    A file holds the one-rank layout, so a model-sharded state is
+    refused: restore into the full state, then re-cut it
+    (``replicate``, ``shard_model_params``, ``zero_place``)."""
+    if has_model_shards(state):
+        raise ValueError("a train-state file restores into an unsharded state; shard it after "
+                         "(parallel.shard_model_params)")
     for name, value in _fields(state).items():
         if isinstance(value, nn.Module):
             value.load_state_dict(payload[name])

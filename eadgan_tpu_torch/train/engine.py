@@ -201,7 +201,20 @@ def run_epochs(
     then runs on every rank, so a final save must be collective
     (``checkpoint.save_train_state_sync``).  Ranks that share a card
     over gloo run the per-step engine: ``chain`` > 1 raises there.
+
+    A state sharded over a model axis (``parallel.shard_model_params``)
+    raises ``ValueError``: the JAX engine builds its mesh at
+    ``model_parallel=1`` only, and rank 0's grids and saves, run alone,
+    would wait forever on a model group's gather.  A grid trains through
+    the library API (``parallel.data_parallel_step`` with its mesh).
     """
+    from eadgan_tpu_torch.parallel.mesh import has_model_shards
+
+    if has_model_shards(state):
+        raise ValueError(
+            "run_epochs trains at model_parallel=1: this state is sharded over a model axis "
+            "(parallel.shard_model_params); step it with parallel.data_parallel_step(step, mesh)"
+        )
     if zero_opt and not (data_parallel and chain > 1):
         raise ValueError(
             "--zero_opt shards optimizer state over the data axis: it requires "
@@ -269,12 +282,14 @@ def run_epochs(
                 final_step = state.step
                 local_stop.cut_short = final_step < planned_end
                 if on_shutdown is not None:
+                    # one write a line: the ranks may share a stdout, and an
+                    # unbuffered print writes the text and its newline apart
                     if coordinator:
-                        print(f"graceful shutdown: saving final train state at step {final_step}",
-                              flush=True)
+                        print(f"graceful shutdown: saving final train state at step {final_step}\n",
+                              end="", flush=True)
                     else:  # every rank says where it stopped
                         print(f"graceful shutdown: rank {multihost.process_index()} "
-                              f"stopped at step {final_step}", flush=True)
+                              f"stopped at step {final_step}\n", end="", flush=True)
                     if wd is not None:
                         wd.grace()  # the save's seconds are no stall
                     t0 = time.perf_counter()

@@ -42,6 +42,11 @@ rp at batch 16 in windows of 4) hands ``on_shutdown`` the train state of
 a ``max_steps`` run to the same step, bit for bit
 (``tools/stop_check.py``).
 
+The model axis: the CelebA bf16 step on a (1, 1) grid in a NCCL group
+of one, bit-equal to the plain step; two gloo ranks sharing the card as
+a (1, 2) grid against one rank at the JAX 2-D test's bars
+(``tools/tp_check.py``).
+
 Data-parallel training in a NCCL group of one (``tools/dp_check.py``):
 ``run_epochs`` chained for the gray rp and CelebA bf16 steps at batch 16
 in windows of 4, plain, ``data_parallel`` (its all-reduces captured in
@@ -437,6 +442,55 @@ def test_gloo_chain_on_the_card_raises(cuda, no_group, monkeypatch):
     with pytest.raises(ValueError, match="cannot be captured in a CUDA graph"):
         run_epochs(n_epochs=1, data=data, batch_size=8, state=state, step_fn=step, on_batch=None,
                    device="cuda", max_steps=2, chain=4, data_parallel=True, **prep)
+
+
+def test_grid_1x1_on_the_card_bit_equal_to_no_grid(cuda, no_group):
+    """The CelebA bf16 step at batch 16 on a (1, 1) grid in a NCCL group
+    of one against the plain step, 3 steps from copies of one state:
+    bit-equal, no model-axis collective."""
+    from eadgan_tpu_torch import parallel
+    from eadgan_tpu_torch.parallel.mesh import model_collectives, reset_model_collectives
+    from eadgan_tpu_torch.tools.chain_check import _cudnn_deterministic
+    from eadgan_tpu_torch.tools.dp_check import _equal
+    from eadgan_tpu_torch.tools.tp_check import inputs
+    from eadgan_tpu_torch.train.chain import snapshot_state
+    from eadgan_tpu_torch.train.checkpoint import train_state_payload
+    from eadgan_tpu_torch.train.config import CelebaConfig
+    from eadgan_tpu_torch.train.gan_celeba import init_celeba_gan_state, make_celeba_gan_step
+
+    device = parallel.join_local("cuda")
+    mesh = parallel.default_mesh(1)
+    config = CelebaConfig(batch_size=16)
+    state = init_celeba_gan_state(config, device=device, seed=0, dtype=torch.bfloat16)
+    twin = parallel.shard_model_params(mesh, parallel.replicate(snapshot_state(state)))
+    imgs = torch.from_numpy(inputs(16, 0)[0]).to(device)
+    grid = parallel.data_parallel_step(make_celeba_gan_step(config), mesh)
+    reset_model_collectives()
+    with _cudnn_deterministic():
+        for _ in range(3):
+            state, m = make_celeba_gan_step(config)(state, imgs)
+            twin, m_grid = grid(twin, imgs)
+            assert all(torch.equal(m[k], m_grid[k]) for k in m)
+    assert _equal(train_state_payload(state), train_state_payload(twin))
+    assert all(v["count"] == 0 for v in model_collectives().values())
+
+
+def test_grid_1x2_of_ranks_sharing_the_card_matches_one_rank(cuda, no_group):
+    """``tools/tp_check.py`` on the card: two gloo ranks as (1, 2), the
+    CelebA f32 step at ``chip_smoke.py`` phase 8's global batch of 128 for
+    2 steps against one rank at the JAX 2-D test's bars; each rank
+    launched the warp once a step and holds half of the large layers.
+    (At a batch of 8 the step-1 bar, rtol 1e-3, is at the noise of any
+    grid: the data axis alone reaches 8.2e-4 there on the CPU.)"""
+    from eadgan_tpu_torch.tools.tp_check import run_tp_check
+
+    report = run_tp_check(grid=(1, 2), batch=128, steps=2, device="cuda")
+    assert report["vs_one_rank"]["ok"], report["vs_one_rank"]
+    assert report["params_step0"]["g"]["ok"], report["params_step0"]
+    assert report["ranks_agree"] and report["ok"]
+    assert report["warp_launches_by_rank"] == {0: 2, 1: 2}
+    assert all(b["params"] < 0.55 * report["one_rank_bytes"]["params"]
+               for b in report["bytes_by_rank"].values())
 
 
 # the generator's int8 layers: (H, Cin, Cout) of the input of layers 1-3

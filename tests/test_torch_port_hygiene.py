@@ -88,6 +88,19 @@ def test_no_card_raises_instead_of_falling_back(monkeypatch):
         platform_device()
 
 
+@pytest.mark.parametrize("module", ["dp_check", "tp_check"])
+def test_parallel_checks_refuse_without_a_card(module):
+    """The data- and model-axis checks run on the card unless asked for
+    the CPU: without one they stop before any rank starts."""
+    import importlib
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the no-card error cannot show")
+    main = importlib.import_module(f"eadgan_tpu_torch.tools.{module}").main
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        main([])
+
+
 def test_kernel_module_imports_without_nvcc(tmp_path):
     """Building happens at first launch, so the kernel modules import on
     a machine with no nvcc; asking for the library there raises."""
