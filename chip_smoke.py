@@ -149,8 +149,9 @@ a non-zero exit on the first that fails:
    model-axis collectives move a step; (c) four ranks as (2, 2) with
    ZeRO-1, global batch 32, 3 steps with a collective save after 2,
    whose file a (1, 2) grid restores, re-cuts and saves again bit for
-   bit, then steps once against the writer's third step.  Every rank
-   must exit 0.  The grids' warp launches (one a step on each rank's
+   bit, then steps once against the writer's third step.  In (b) and
+   (c) every tensor no model shard cuts must hold the same bits on the
+   ranks that hold it.  Every rank must exit 0.  The grids' warp launches (one a step on each rank's
    rows) are the paths ``celeba_tp`` ((a) and (b)) and
    ``celeba_tp_zero`` ((c), the resumed ranks included).
 

@@ -33,7 +33,10 @@ functions, unlike the data axis's sum of per-rank losses: its input
 passes :func:`copy_to_model` (backward: the input gradient summed over
 the group), its output :func:`gather_from_model` (backward: this rank's
 slice of the replicated gradient), and spectral norm's partial sums
-:func:`reduce_from_model` (backward: identity).
+:func:`reduce_from_model` (backward: identity).  The replicated
+parameters' gradients are made the model group's first rank's before
+each optimizer step (:func:`mean_gradients`), so the replicas never
+drift apart, whatever order a kernel sums in.
 
 All of this is active only inside :func:`data_axis`, which the engine
 enters around each train step on the thread that runs it (a sharded
@@ -57,7 +60,7 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
-from eadgan_tpu_torch.parallel.multihost import Mesh, process_count, process_index
+from eadgan_tpu_torch.parallel.multihost import Mesh, default_mesh, process_count
 
 __all__ = [
     "data_axis",
@@ -81,6 +84,7 @@ __all__ = [
     "shard_model_params",
     "model_shards",
     "has_model_shards",
+    "placed_tensors",
     "state_shardings",
     "gathering",
     "full_tensor",
@@ -88,11 +92,11 @@ __all__ = [
     "gather_optimizer_state",
 ]
 
-_AXIS = threading.local()  # .axis: (size, index, group) inside data_axis
+_AXIS = threading.local()  # .axis: (mesh, ids of the stepped state's model shards)
 _GATHER = threading.local()
 _COUNT = [0]  # collectives issued from Python (a captured graph replays them uncounted)
 # model-axis collectives by function: [count, bytes]
-_MODEL = {"copy": [0, 0], "gather": [0, 0], "reduce": [0, 0]}
+_MODEL = {"copy": [0, 0], "gather": [0, 0], "reduce": [0, 0], "sync": [0, 0]}
 
 
 def collective_count() -> int:
@@ -108,32 +112,36 @@ def _all_reduce(t: torch.Tensor, group=None) -> torch.Tensor:
 
 
 @contextlib.contextmanager
-def data_axis(mesh: Optional[Mesh] = None):
+def data_axis(mesh: Optional[Mesh] = None, state=None):
     """Inside the block, on this thread: BatchNorm statistics and the
     gradients of optimizer steps are reduced over the data axis (the
-    ``mesh``'s data group; the whole process group without one), and the
-    steps' draws are sliced to this rank's rows."""
+    data group of ``mesh``, by default ``default_mesh()``: the whole
+    process group), and the steps' draws are sliced to this rank's rows.
+    On a model axis the block steps ``state``: the gradients of its
+    model-sharded weights stay this rank's own, and every other gradient
+    is made the model group's first rank's (:func:`mean_gradients`)."""
     if not dist.is_initialized():
         raise RuntimeError("the data axis needs a process group (parallel.initialize or join_local)")
+    mesh = mesh or default_mesh()
+    if mesh.model > 1 and state is None:
+        raise ValueError("a model axis steps a train state: data_axis(mesh, state)")
     prev = getattr(_AXIS, "axis", None)
-    if mesh is None:
-        _AXIS.axis = (process_count(), process_index(), None)
-    else:
-        _AXIS.axis = (mesh.data, mesh.data_index, mesh.data_group)
+    _AXIS.axis = (mesh, frozenset(model_shards(state)) if mesh.model > 1 else frozenset())
     try:
         yield
     finally:
         _AXIS.axis = prev
 
 
-def _axis():
-    return getattr(_AXIS, "axis", None)
+def _mesh() -> Optional[Mesh]:
+    axis = getattr(_AXIS, "axis", None)
+    return axis[0] if axis else None
 
 
 def axis_size() -> int:
     """The data axis's size inside :func:`data_axis`, 0 outside it."""
-    axis = _axis()
-    return axis[0] if axis else 0
+    mesh = _mesh()
+    return mesh.data if mesh else 0
 
 
 def local_rows(x, local_batch: int):
@@ -145,7 +153,7 @@ def local_rows(x, local_batch: int):
         return x
     if len(x) != n * local_batch:
         raise ValueError(f"a draw of {len(x)} rows for {n} ranks of {local_batch}")
-    start = _axis()[1] * local_batch
+    start = _mesh().data_index * local_batch
     return x[start : start + local_batch]
 
 
@@ -175,33 +183,55 @@ def global_mean(x: torch.Tensor) -> torch.Tensor:
     """The mean over the data axis of ``x``, each rank's mean over its
     equal slice of the batch, so the mean over the global batch;
     differentiable.  Outside :func:`data_axis`, ``x`` itself."""
-    axis = _axis()
-    if not axis:
+    mesh = _mesh()
+    if not mesh:
         return x
-    return _AllReduceSum.apply(x, axis[2]) / float(axis[0])
+    return _AllReduceSum.apply(x, mesh.data_group) / float(mesh.data)
 
 
 def all_reduce_mean(x: torch.Tensor) -> torch.Tensor:
     """``x`` averaged over the data axis in place (no autograd; the whole
     process group outside :func:`data_axis`)."""
-    axis = _axis()
-    n, group = (axis[0], axis[2]) if axis else (process_count(), None)
-    return _all_reduce(x, group).div_(float(n))
+    mesh = _mesh() or default_mesh()
+    return _all_reduce(x, mesh.data_group).div_(float(mesh.data))
+
+
+def _flat(grads, reduce) -> None:
+    """``reduce`` one flat buffer of ``grads`` in place, copied back."""
+    if not grads:
+        return
+    flat = reduce(torch.cat([g.reshape(-1) for g in grads]))
+    offset = 0
+    for g in grads:
+        g.copy_(flat[offset : offset + g.numel()].view_as(g))
+        offset += g.numel()
+
+
+def _from_first_model_rank(flat: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    _count("sync", flat)
+    dist.broadcast(flat, src=mesh.data_index * mesh.model, group=mesh.model_group)
+    return flat
 
 
 def mean_gradients(params) -> None:
     """Average the gradients of ``params`` over the data axis: one
     all-reduce of one flat buffer, then a division by its size, copied
     back.  Parameters without a gradient are left alone (the same on
-    every rank: each runs the same graph)."""
-    grads = [p.grad for p in params if p.grad is not None]
-    if not grads:
-        return
-    flat = all_reduce_mean(torch.cat([g.reshape(-1) for g in grads]))
-    offset = 0
-    for g in grads:
-        g.copy_(flat[offset : offset + g.numel()].view_as(g))
-        offset += g.numel()
+    every rank: each runs the same graph).
+
+    On a model axis the replicated parameters' gradients (all but the
+    model-sharded weights of the state :func:`data_axis` steps) are then
+    broadcast in one flat buffer from the first rank of the model group:
+    the ranks of a group compute them from the same bits, but a kernel
+    that sums in a varying order (cuDNN's non-deterministic algorithms,
+    atomic adds) may round them apart, and replicas must not drift.  With
+    deterministic kernels no bit changes."""
+    _flat([p.grad for p in params if p.grad is not None], all_reduce_mean)
+    mesh = _mesh()
+    if mesh is not None and mesh.model > 1:
+        sharded = _AXIS.axis[1]
+        _flat([p.grad for p in params if p.grad is not None and id(p) not in sharded],
+              lambda flat: _from_first_model_rank(flat, mesh))
 
 
 def _params(opt):
@@ -264,12 +294,13 @@ def shard_window(window: np.ndarray, rows: slice) -> np.ndarray:
 
 
 def data_parallel_step(step_fn: Callable, mesh: Optional[Mesh] = None) -> Callable:
-    """``step_fn`` run inside :func:`data_axis` of ``mesh``, its metrics
-    averaged over the data axis in one all-reduce (the means over the
-    global batch; a model group computes them once, replicated)."""
+    """``step_fn`` run inside :func:`data_axis` of ``mesh`` and the state
+    it steps, its metrics averaged over the data axis in one all-reduce
+    (the means over the global batch; a model group computes them once,
+    replicated)."""
 
     def step(state, *batch, **kwargs):
-        with data_axis(mesh):
+        with data_axis(mesh, state):
             state, metrics = step_fn(state, *batch, **kwargs)
             keys = sorted(metrics)
             packed = all_reduce_mean(torch.stack([metrics[k].float().reshape(()) for k in keys]))
@@ -308,7 +339,8 @@ def _count(kind: str, t: torch.Tensor) -> None:
 def model_collectives() -> Dict[str, Dict[str, int]]:
     """The model-axis collectives this process has issued since
     :func:`reset_model_collectives`, by function: ``count`` and ``bytes``
-    (the all-reduced tensor, or the gathered full one)."""
+    (the all-reduced tensor, or the gathered full one; ``sync``: the
+    replicated gradients :func:`mean_gradients` broadcasts)."""
     return {k: {"count": c, "bytes": b} for k, (c, b) in _MODEL.items()}
 
 
@@ -479,38 +511,38 @@ def has_model_shards(target) -> bool:
     return bool(model_shards(target))
 
 
-def _opt_params(opt):
-    return [p for group in opt.param_groups for p in group["params"]]
-
-
-def state_shardings(state) -> Dict[str, tuple]:
-    """Each tensor of a train state by name, as ``(placement, local
-    shape)``: ``placement`` the ``(axis, dim)`` pairs it is cut on,
-    ``("model", d)`` for a sharded weight and its Adam moments,
-    ``("data", d)`` for a ZeRO slice, empty when replicated.  A step must
-    leave it unchanged: the contract the JAX package's ``constrain_like``
-    pins on a step's outputs.  ``constrain_like`` itself has no
-    counterpart: the port never re-places a tensor, it updates each in
-    place."""
+def placed_tensors(state):
+    """``(name, placement, tensor)`` of each tensor of a train state: its
+    models' parameters and buffers and its optimizers' Adam moments (a
+    ZeRO optimizer's slices), ``placement`` the ``(axis, dim)`` pairs the
+    tensor is cut on, ``("model", d)`` for a sharded weight and its
+    moments, ``("data", d)`` for a ZeRO slice, empty when replicated."""
     shards = model_shards(state)
-    out = {}
     for name, value in ((f.name, getattr(state, f.name)) for f in dataclasses.fields(state)):
         if isinstance(value, nn.Module):
             sharded = {f"{n}.weight": m.model_shard for n, m in value.named_modules()
                        if getattr(m, "model_shard", None) is not None}
             for key, t in value.state_dict(keep_vars=True).items():
                 place = (("model", sharded[key].dim),) if key in sharded else ()
-                out[f"{name}.{key}"] = (place, tuple(t.shape))
+                yield f"{name}.{key}", place, t
         elif name.startswith("opt") and value is not None:
             zero = getattr(value, "dims", None)  # a ZeroAdam's data dims
-            for i, p in enumerate(_opt_params(value)):
+            for i, p in enumerate(_params(value)):
                 st = value.inner.state.get(value.shards[i], {}) if zero else value.state.get(p, {})
                 model = (("model", shards[id(p)].dim),) if id(p) in shards else ()
                 data = (("data", zero[i]),) if zero and zero[i] is not None else ()
                 for k, v in sorted(st.items()):
                     if torch.is_tensor(v) and v.dim():
-                        out[f"{name}.state.{i}.{k}"] = (model + data, tuple(v.shape))
-    return out
+                        yield f"{name}.state.{i}.{k}", model + data, v
+
+
+def state_shardings(state) -> Dict[str, tuple]:
+    """Each tensor of a train state by name, as ``(placement, local
+    shape)`` (:func:`placed_tensors`).  A step must leave it unchanged:
+    the contract the JAX package's ``constrain_like`` pins on a step's
+    outputs.  ``constrain_like`` itself has no counterpart: the port
+    never re-places a tensor, it updates each in place."""
+    return {name: (place, tuple(t.shape)) for name, place, t in placed_tensors(state)}
 
 
 @contextlib.contextmanager

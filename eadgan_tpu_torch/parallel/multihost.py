@@ -278,15 +278,15 @@ def default_mesh(model_parallel: int = 1) -> Mesh:
 
 def host_batch_slice(global_batch: int, mesh: Optional[Mesh] = None) -> slice:
     """The half-open rows of the global batch this rank feeds: its data
-    index's slice, the same on every rank of a model group (the whole
-    world is the data axis without a ``mesh``).  Raises when the global
-    batch does not divide over the data axis: a silent truncation would
-    train at a smaller batch than configured."""
-    n, index = (process_count(), process_index()) if mesh is None else (mesh.data, mesh.data_index)
-    if global_batch % n != 0:
-        raise ValueError(f"global batch {global_batch} not divisible by data axis size {n}")
-    per_rank = global_batch // n
-    start = index * per_rank
+    index's slice on ``mesh`` (by default ``default_mesh()``, whose data
+    axis is the whole world), the same on every rank of a model group.
+    Raises when the global batch does not divide over the data axis: a
+    silent truncation would train at a smaller batch than configured."""
+    mesh = mesh or default_mesh()
+    if global_batch % mesh.data != 0:
+        raise ValueError(f"global batch {global_batch} not divisible by data axis size {mesh.data}")
+    per_rank = global_batch // mesh.data
+    start = mesh.data_index * per_rank
     return slice(start, start + per_rank)
 
 

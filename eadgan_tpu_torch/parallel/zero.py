@@ -45,7 +45,7 @@ from eadgan_tpu_torch.parallel.mesh import (
     mean_gradients,
     model_shards,
 )
-from eadgan_tpu_torch.parallel.multihost import Mesh, process_count, process_index
+from eadgan_tpu_torch.parallel.multihost import Mesh, default_mesh
 
 __all__ = ["zero_spec", "ZeroAdam", "zero_place", "gathering"]
 
@@ -82,12 +82,10 @@ class ZeroAdam:
     def __init__(self, opt: torch.optim.Adam, rank: Optional[int] = None,
                  world: Optional[int] = None, mesh: Optional[Mesh] = None,
                  shards: Optional[Dict] = None):
-        if mesh is None:
-            self.rank = process_index() if rank is None else rank
-            self.world = process_count() if world is None else world
-            self.group = None
-        else:
-            self.rank, self.world, self.group = mesh.data_index, mesh.data, mesh.data_group
+        mesh = mesh or default_mesh()
+        self.rank = mesh.data_index if rank is None else rank
+        self.world = mesh.data if world is None else world
+        self.group = mesh.data_group
         shards = shards or {}
         self.template = type(opt)([dict(g, params=list(g["params"])) for g in opt.param_groups],
                                   **opt.defaults)
@@ -200,7 +198,8 @@ class ZeroAdam:
 def zero_place(state, mesh: Optional[Mesh] = None) -> None:
     """Replace every ``opt*`` optimizer of a replicated (and, on a grid,
     model-sharded) train state with a :class:`ZeroAdam` of it over
-    ``mesh``'s data axis (the process group without one), in place;
+    ``mesh``'s data axis (by default ``default_mesh()``'s: the process
+    group), in place;
     models, generator and step stay."""
     shards = model_shards(state)
     if shards and mesh is None:

@@ -34,13 +34,17 @@ rates of the optimizers that move the model in one train step (G:
 ``opt_g`` and ``opt_info``: the JAX test writes its bound with ``g_lr``
 alone, which the port's data axis alone exceeds at a global batch of 32
 by a flip under both); D's numbers by the same rule are reported, not
-held, as the JAX test holds G alone; every rank's losses equal; a
-resumed grid's steps at the step-0 bar against the writer's.  And it reports, by rank, the warp's
+held, as the JAX test holds G alone (for each, the elements beyond
+half a step whose gradient changed sign between the runs, and how large
+those gradients are against their tensor's largest); every rank's losses
+equal, and every tensor no model shard cuts (parameters, buffers, Adam
+moments) bit-equal on the ranks that hold it; a resumed grid's steps at
+the step-0 bar against the writer's.  And it reports, by rank, the warp's
 launches, the bytes of parameters and of Adam moments each holds, and
 the model-axis collectives each step issues, by function
 (``parallel.mesh.model_collectives``: the gathered bytes of layer
 outputs, the all-reduced bytes of input gradients and spectral norm's
-sums).  TF32 off, cuDNN deterministic.  Prints one JSON line; exits
+sums, the broadcast bytes of replicated gradients).  TF32 off, cuDNN deterministic.  Prints one JSON line; exits
 non-zero when a rank fails or a bar is missed.
 """
 
@@ -48,6 +52,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import hashlib
 import json
 import os
 import socket
@@ -107,6 +112,21 @@ def _local_bytes(state) -> dict:
     return {"params": params, "moments": moments}
 
 
+def _replica_digests(state) -> dict:
+    """``{name: [axes, sha256]}`` of each tensor of ``state`` that no
+    model shard cuts (``axes``: ``["data"]`` for a ZeRO slice, else
+    empty): the bits every rank holding the same part must share."""
+    from eadgan_tpu_torch.parallel.mesh import placed_tensors
+
+    out = {}
+    for name, place, t in placed_tensors(state):
+        axes = sorted({axis for axis, _ in place})
+        if "model" not in axes:
+            raw = t.detach().cpu().contiguous().reshape(-1).view(torch.uint8).numpy()
+            out[name] = [axes, hashlib.sha256(raw.tobytes()).hexdigest()]
+    return out
+
+
 # --- a rank ----------------------------------------------------------------------
 
 
@@ -158,6 +178,7 @@ def _rank_main(opt) -> None:
         if opt.save_at and i == opt.save_at - 1:
             parallel.save_on_coordinator(os.path.join(opt.work, f"step{opt.save_at}.ckpt"), state)
     report["warp_launches"] = stn_cuda.launch_count
+    report["replicas"] = _replica_digests(state)
     with open(os.path.join(opt.work, f"rank{opt.rank}.json"), "w") as f:
         json.dump(report, f)
     parallel.sync()
@@ -224,6 +245,19 @@ def _one_rank(config, device, imgs, draws):
     return losses, after0, _local_bytes(state)
 
 
+def _replicas_agree(ranks) -> dict:
+    """Every tensor that no model shard cuts, bit-equal on all ranks (a
+    ZeRO slice: on the ranks of one data index, a model group)."""
+    bad = set()
+    for a in ranks:
+        for b in ranks[a["rank"] + 1 :]:
+            same_rows = a["mesh"][2] == b["mesh"][2]
+            for name, (axes, digest) in a["replicas"].items():
+                if (same_rows or "data" not in axes) and b["replicas"][name][1] != digest:
+                    bad.add(name)
+    return {"tensors": len(ranks[0]["replicas"]), "mismatched": sorted(bad)[:20], "ok": not bad}
+
+
 def _loss_check(ref, got, bars=LOSS_BARS) -> dict:
     rel, ok = [], len(ref) == len(got)
     for s, (a, b) in enumerate(zip(ref, got)):
@@ -233,26 +267,61 @@ def _loss_check(ref, got, bars=LOSS_BARS) -> dict:
     return {"rel_diff_by_step": rel, "ok": bool(ok)}
 
 
+_BUFFERS = ("running_mean", "running_var", "num_batches_tracked", ".u", ".sigma")
+
+
+def _first_moments(payload: dict, model: str) -> dict:
+    """Each parameter of ``model`` ("g" or "d") of a train-state payload
+    after one step, by name: the first Adam moments (``exp_avg``, 1 - b1
+    times the step's gradient) of the optimizers that moved it, its own
+    and ``opt_info`` (over G's parameters, then D's)."""
+    names = [n for n in payload[model] if not n.endswith(_BUFFERS)]
+    offset = 0 if model == "g" else sum(not n.endswith(_BUFFERS) for n in payload["g"])
+    own, info = payload[f"opt_{model}"]["state"], payload["opt_info"]["state"]
+    return {n: [st["exp_avg"] for st in (own.get(i), info.get(offset + i)) if st]
+            for i, n in enumerate(names)}
+
+
 def _param_check(config, ref: dict, got: dict) -> dict:
     """G's and D's parameters after step 0, grid (``got``, a gathered
     file's payload) against one rank: the JAX 2-D test's bar (``held``
-    for G, as there)."""
+    for G, as there).  A first Adam step moves an element by its rate
+    times g / (|g| + eps), so an element lands beyond half a step when a
+    gradient's sign differs between the two runs.  ``sign_flipped``
+    counts those among the elements beyond, by optimizer (the model's
+    own, then ``opt_info``, which steps after it and so sees its moves),
+    and ``flipped_grad_rel`` is, by optimizer, the largest such gradient
+    over its tensor's largest (rounding noise in a gradient that cancels
+    is far below 1; a gradient that is zero but for rounding reads 1)."""
     out = {}
     for model, names in RATES.items():
         lr = sum(getattr(config, n) for n in names)
+        moments_ref, moments_got = _first_moments(ref, model), _first_moments(got, model)
         by_name, beyond, total = {}, 0, 0
+        either, flipped, rel_max = 0, [0, 0], [0.0, 0.0]
         for name, a in ref[model].items():
-            if name.endswith(("running_mean", "running_var", "num_batches_tracked", ".u", ".sigma")):
+            if name.endswith(_BUFFERS):
                 continue
             diff = (a.double() - got[model][name].double()).abs()
-            by_name[name] = (diff.max().item(), int((diff > 0.5 * lr).sum()), diff.numel())
-            beyond += by_name[name][1]
-            total += diff.numel()
+            far = diff > 0.5 * lr
+            any_flip = torch.zeros_like(far)
+            for k, (m_ref, m_got) in enumerate(zip(moments_ref[name], moments_got[name])):
+                flip = far & (torch.sign(m_ref) != torch.sign(m_got))
+                any_flip |= flip
+                if flip.any():
+                    flipped[k] += int(flip.sum())
+                    scale = m_ref.abs().max().double().clamp_min(1e-30)
+                    rel_max[k] = max(rel_max[k], (m_ref.abs().double()[flip] / scale).max().item())
+            n_far, n_flip = int(far.sum()), int(any_flip.sum())
+            by_name[name] = (diff.max().item(), n_far, n_flip, diff.numel())
+            beyond, either, total = beyond + n_far, either + n_flip, total + diff.numel()
         worst = max(v[0] for v in by_name.values())
         out[model] = {"max_abs": worst, "bound": PARAM_BOUND * lr, "beyond_half_step": beyond,
                       "share_beyond_half_step": beyond / total,
-                      "worst_tensors": sorted(([n, *v] for n, v in by_name.items()),
-                                              key=lambda r: -r[1])[:4],
+                      "sign_flipped": {"any": either, "own": flipped[0], "opt_info": flipped[1]},
+                      "flipped_grad_rel": {"own": rel_max[0], "opt_info": rel_max[1]},
+                      "by_tensor": sorted(([n, *v] for n, v in by_name.items() if v[1]),
+                                          key=lambda r: -r[2])[:6],
                       "held": model == "g",
                       "ok": worst <= PARAM_BOUND * lr and beyond / total < PARAM_SHARE}
     return out
@@ -295,6 +364,7 @@ def run_tp_check(grid=(1, 2), zero_opt: bool = False, batch: int = 128, steps: i
             "loss_bars": [list(b) for b in LOSS_BARS],
             "vs_one_rank": _loss_check(one, got),
             "ranks_agree": all(r["losses"] == got for r in ranks),
+            "replicas_agree": _replicas_agree(ranks),
             "params_step0": _param_check(config, one_after0,
                                          _load(os.path.join(work, "grid", "step0.ckpt"))),
             "warp_launches_by_rank": {r["rank"]: r["warp_launches"] for r in ranks},
@@ -304,7 +374,7 @@ def run_tp_check(grid=(1, 2), zero_opt: bool = False, batch: int = 128, steps: i
             "grid_step_s": ranks[0]["step_s"],
         })
         ok = (report["vs_one_rank"]["ok"] and report["ranks_agree"]
-              and all(v["ok"] for v in report["params_step0"].values() if v["held"]))
+              and report["replicas_agree"]["ok"] and all(v["ok"] for v in report["params_step0"].values() if v["held"]))
         if resume_grid:
             path = os.path.join(work, "grid", f"step{save_at}.ckpt")
             t0 = time.perf_counter()
@@ -317,10 +387,12 @@ def run_tp_check(grid=(1, 2), zero_opt: bool = False, batch: int = 128, steps: i
                    "losses": resumed[0]["losses"], "writer_losses": got[save_at:],
                    "vs_writer": _loss_check(got[save_at:], resumed[0]["losses"], LOSS_BARS[:1]),
                    "ranks_agree": all(r["losses"] == resumed[0]["losses"] for r in resumed),
+                   "replicas_agree": _replicas_agree(resumed),
                    "warp_launches_by_rank": {r["rank"]: r["warp_launches"] for r in resumed},
                    "bytes_by_rank": {r["rank"]: r["bytes"] for r in resumed}}
             report["resume"] = res
-            ok &= res["recut_equals_file"] and res["vs_writer"]["ok"] and res["ranks_agree"]
+            ok &= (res["recut_equals_file"] and res["vs_writer"]["ok"] and res["ranks_agree"]
+                   and res["replicas_agree"]["ok"])
     report["ok"] = bool(ok)
     return report
 

@@ -240,11 +240,12 @@ def run_epochs(
                 "gloo collectives cannot be captured in a CUDA graph: ranks that share a card "
                 "over gloo (EADGAN_DIST_BACKEND=gloo) train with the per-step engine, --chain 1"
             )
-        rows = parallel.host_batch_slice(batch_size)
+        mesh = parallel.default_mesh()
+        rows = parallel.host_batch_slice(batch_size, mesh)
         state = parallel.replicate(state)
         if zero_opt:
-            parallel.zero_place(state)
-        step_fn = parallel.data_parallel_step(step_fn)
+            parallel.zero_place(state, mesh)
+        step_fn = parallel.data_parallel_step(step_fn, mesh)
         coordinator = parallel.is_coordinator()
         if stop_event is not None and multihost.process_count() > 1:
             stop_event = _GangStopView(stop_event)

@@ -370,7 +370,8 @@ LAYER_WORKER = textwrap.dedent(
     from eadgan_tpu_torch import parallel
     from eadgan_tpu_torch.models.layers import (SNConv, SNDense, TorchConv, TorchConvTranspose,
                                                 TorchDense, no_stat_updates)
-    from eadgan_tpu_torch.parallel.mesh import model_collectives, reset_model_collectives
+    from eadgan_tpu_torch.parallel.mesh import (mean_gradients, model_collectives,
+                                                reset_model_collectives)
 
     rank, port, work = int(sys.argv[1]), sys.argv[2], sys.argv[3]
     parallel.initialize(f"localhost:{port}", 4, rank, device="cpu")
@@ -419,7 +420,24 @@ LAYER_WORKER = textwrap.dedent(
                 rec["u_after_eval"] = m.u.clone()
             runs.append(rec)
         out[name] = runs
-    torch.save({"mesh": (mesh.data_index, mesh.model_index), "layers": out}, f"{work}/rank{rank}.pt")
+    # before an optimizer step: the gradients averaged over the data group,
+    # then the replicated ones made the model group's first rank's
+    net = torch.nn.Sequential(TorchDense(6, 8), TorchDense(8, 3))
+    parallel.shard_model_params(mesh, net, min_channels=8)  # the first layer only
+    for i, p in enumerate(net.parameters()):
+        p.grad = torch.full_like(p, float(10 * rank + i))
+    reset_model_collectives()
+    with parallel.data_axis(mesh, net):
+        mean_gradients(list(net.parameters()))
+    try:
+        with parallel.data_axis(mesh):
+            refused = False
+    except ValueError:
+        refused = True
+    sync = {"grads": {n: p.grad.clone() for n, p in net.named_parameters()},
+            "collectives": model_collectives(), "refused_without_state": refused}
+    torch.save({"mesh": (mesh.data_index, mesh.model_index), "layers": out, "sync": sync},
+               f"{work}/rank{rank}.pt")
     parallel.sync()
     """
 )
@@ -476,3 +494,21 @@ def test_column_parallel_layer_matches_the_unsharded_one(layer_gang, name):
         # one gather of the output; the input gradient's sum in the backward
         assert got["collectives"]["gather"]["count"] >= 1
         assert got["collectives"]["copy"]["count"] >= 1
+
+
+def test_replicated_gradients_are_the_first_model_rank_s(layer_gang):
+    """``mean_gradients`` on a (2, 2) grid: each gradient averaged over
+    the data group, then the replicated ones (all but the sharded
+    weight's) broadcast from model index 0 in one flat buffer, so every
+    rank steps its replicas with the same bits; ``data_axis`` on a model
+    axis refuses to run without the state it steps."""
+    for rank in layer_gang:
+        data, model = rank["mesh"]
+        sync = rank["sync"]
+        # rank r's gradient i was 10 r + i; the data group of model index
+        # m is ranks m and 2 + m, whose mean is 10 m + 10 + i
+        for i, (name, grad) in enumerate(sync["grads"].items()):
+            want = 10 * model + 10 + i if name == "0.weight" else 10 + i
+            assert torch.equal(grad, torch.full_like(grad, float(want))), (rank["mesh"], name)
+        assert sync["collectives"]["sync"] == {"count": 1, "bytes": 4 * (8 + 3 * 8 + 3)}
+        assert sync["refused_without_state"]

@@ -234,6 +234,25 @@ def test_params_after_step0_within_a_flipped_adam_step(grid, model, tmp_path):
     assert flipped / total < 0.005, (flipped, total)
 
 
+def test_replicated_tensors_bit_equal_on_every_rank(grid):
+    """Every parameter, buffer and Adam moment that no model shard cuts
+    holds the same bits on all four ranks after the steps."""
+    def local(rank, name):
+        field, _, key = name.partition(".")
+        if field.startswith("opt"):
+            _, i, moment = key.split(".")
+            return rank["local"][field]["state"][int(i)][moment]
+        return rank["local"][field][key]
+
+    ranks = grid["ranks"]
+    placements = ranks[0]["tp"]["shardings"][-1]
+    replicated = [name for name, (place, _) in placements.items() if not place]
+    assert any(n.startswith("opt_info.") for n in replicated)
+    for name in replicated:
+        for r in ranks[1:]:
+            assert torch.equal(local(r, name), local(ranks[0], name)), (r["mesh"], name)
+
+
 def test_zero_on_the_grid_bit_equal_to_no_zero(grid):
     for r in grid["ranks"]:
         assert _losses(r, "zero") == _losses(r, "tp")
