@@ -3,7 +3,7 @@
 NVIDIA H100.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It needs one
-CUDA card and the CUDA toolkit (nvcc) and runs eight phases, failing with
+CUDA card and the CUDA toolkit (nvcc) and runs nine phases, failing with
 a non-zero exit on the first that fails:
 
 1. environment: card name and power limit, torch/CUDA versions, TF32
@@ -40,9 +40,10 @@ a non-zero exit on the first that fails:
    of the step, replayed) against the per-step engine on the card,
    ``run_epochs`` for 8 steps at batch 128 with events every 4, for
    CelebA f32, pxy gray, rp gray and colored and MNIST
-   (``tools/chain_check.py``: cuDNN deterministic, two per-step runs and
-   the chained one bit-equal in every logged loss and event batch, the
-   warp counted per replay); and the warp's launches counted per replay
+   (``tools/chain_check.py``: cuDNN deterministic, two per-step runs on
+   the prefetcher, the chained one on the resident dataset and the
+   chained one on raw windows bit-equal in every logged loss and event
+   batch, the warp counted per replay); and the warp's launches counted per replay
    by its wrapper held against the warp kernels the CUPTI trace of a
    window of 32 replayed gray rp steps shows; the BatchNorm-folded
    bf16 CelebA generator against its float32 eval-mode forward at batch
@@ -153,7 +154,24 @@ a non-zero exit on the first that fails:
    (c) every tensor no model shard cuts must hold the same bits on the
    ranks that hold it.  Every rank must exit 0.  The grids' warp launches (one a step on each rank's
    rows) are the paths ``celeba_tp`` ((a) and (b)) and
-   ``celeba_tp_zero`` ((c), the resumed ranks included).
+   ``celeba_tp_zero`` ((c), the resumed ranks included);
+9. the host-fed data path and DCI without scikit-learn: (a) the host
+   batcher (``csrc/batcher.cpp``, built by g++) bit-equal to its plain
+   numpy versions at CelebA's (128, 64, 64, 3) with mixed flips, gray
+   rp's (128, 64, 64) and colorized, timed at 1 and 8 threads beside
+   numpy, and one CelebA batch onto the card the old way (numpy, a
+   pageable copy) against the new (the native gather into pinned memory,
+   an asynchronous copy); (b) ``tools/chain_check.py`` for CelebA and
+   gray rp with its fourth run, the chained engine on raw windows
+   (``EADGAN_DEVICE_DATA_MAX=0``), all four runs bit-equal; (c) the
+   per-step engine on its prefetcher through ``cli.celeba --chain 1
+   --compute bf16`` (40 steps) and ``cli.rp --chain 1 --compute f32`` (20
+   steps), loop step ms and the main thread's wait for a batch; (d)
+   ``cli.celeba --compute bf16`` chained for 64 steps on 8,192 faces,
+   resident against ``EADGAN_DEVICE_DATA_MAX=0``; (e) ``cli.score
+   --metric DCI --dci_regressor LassoCV``, then ``RandomForest``, on the
+   rp run's files.  The new runs' warp launches are the paths
+   ``celeba_per_step``, ``celeba_rawwin`` and ``rp_per_step``.
 
 Its last lines are the ``{"kernels": [...]}`` record, the ``nvidia-smi``
 name/power-limit line, and ``{"ok": true, "device": {...}}``.
@@ -2156,6 +2174,248 @@ def phase_model_axis(torch):
     emit({"model_axis_phase_s": time.perf_counter() - t0})
     return {"celeba_tp": world1 + shared, "celeba_tp_zero": zero}
 
+# --- phase 9: the host-fed data path and DCI ----------------------------------
+
+BATCHER_ROWS = 8192  # rows of each stand-in dataset the batcher gathers from (100 MB at CelebA's)
+BATCHER_REPEATS = 20  # gathers timed a case, median
+FEED_FACES = 640  # (c): CelebA's per-step run, 5 batches an epoch
+FEED_STEPS = 40
+RAWWIN_FACES, RAWWIN_STEPS = 8192, 64  # (d): 64 batches an epoch, one epoch
+
+
+def _median_ms(fn, repeats=BATCHER_REPEATS) -> float:
+    fn()
+    times = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times) * 1e3
+
+
+def feed_batcher(torch):
+    """(a) The native gathers on the card's host, bit-equal to their plain
+    versions at CelebA's (128, 64, 64, 3) with mixed flips, at gray rp's
+    (128, 64, 64) and colorized; ms a batch at 1, 2, 4 and 8 threads
+    beside numpy's (host clock, median of 20).  Then one CelebA batch onto the
+    card the old way (the numpy gather, a pageable copy) against the new
+    (the native gather into pinned memory, an asynchronous copy on the
+    stager's stream), each to a synchronize, and the new way's enqueue."""
+    import numpy as np
+
+    from eadgan_tpu_torch.data import native
+    from eadgan_tpu_torch.data.loader import PinnedStager
+    from eadgan_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    _build.load_host_library()
+    lib = _build.HOST_LIBRARY
+    emit({"host_batcher": lib.path.name, "build_s": lib.build_seconds,
+          "load_s": time.perf_counter() - t0})
+    rng = np.random.default_rng(0)
+    faces = rng.integers(0, 256, (BATCHER_ROWS, 64, 64, 3), np.uint8)
+    sprites = rng.integers(0, 2, (BATCHER_ROWS, 64, 64), np.uint8)
+    idx = rng.permutation(BATCHER_ROWS)[:128]
+    mask = rng.random(128) < 0.5
+    gains = rng.uniform(0.2, 1.0, (128, 3)).astype(np.float32)
+    cases = [
+        ("celeba_flip", native.gather_normalize_flip, native.gather_normalize_flip_plain,
+         (faces, idx, mask, 1.0 / 127.5, -1.0)),
+        ("rp_gray", native.gather_normalize, native.gather_normalize_plain,
+         (sprites, idx, 1.0, 0.0)),
+        ("colorize", native.gather_colorize, native.gather_colorize_plain,
+         (sprites, idx, gains, 1.0, 0.0)),
+    ]
+    for name, fast, plain, args in cases:
+        want = plain(*args)
+        for threads in (1, 8):
+            got = fast(*args, n_threads=threads)
+            check(got.shape == want.shape and np.array_equal(got, want),
+                  f"batcher {name} at {threads} threads differs from its plain version")
+        emit({"batcher": name, "shape": list(want.shape), "bit_equal": True,
+              "ms_by_threads": {n: _median_ms(lambda n=n: fast(*args, n_threads=n))
+                                for n in (1, 2, 4, 8)},
+              "numpy_ms": _median_ms(lambda: plain(*args)), "host_cpus": os.cpu_count()})
+
+    faces_args = cases[0][3]
+    stager = PinnedStager("cuda")
+    shape = (128, 64, 64, 3)
+
+    def old():
+        torch.from_numpy(native.gather_normalize_flip_plain(*faces_args)).to("cuda")
+        torch.cuda.synchronize()
+
+    def enqueue():
+        return stager.stage([(shape, np.float32,
+                              lambda out: native.gather_normalize_flip(*faces_args, out=out))])
+
+    def new():
+        (x,) = enqueue().get()
+        torch.cuda.synchronize()
+        return x
+
+    check(torch.equal(new().cpu(), torch.from_numpy(cases[0][2](*faces_args))),
+          "the staged batch differs from the plain gather")
+    # in turns, old, new, new, old: the host's neighbours move both alike
+    times = {"old": [], "new": []}
+    for way, fn in (("old", old), ("new", new), ("new", new), ("old", old)):
+        times[way].append(_median_ms(fn))
+    emit({"batch_onto_card": "celeba (128, 64, 64, 3), flips", "old_ms_host_clock": times["old"],
+          "new_ms_host_clock": times["new"], "new_enqueue_ms_host_clock": _median_ms(enqueue)})
+    torch.cuda.synchronize()
+
+
+def feed_chain_checks(torch):
+    """(b) ``tools/chain_check.py`` for CelebA (flips, f32) and gray rp (the
+    warp) at batch 128, 8 steps: per-step runs A and B on the prefetcher,
+    chained C resident and D on raw windows, all bit-equal."""
+    from eadgan_tpu_torch.tools.chain_check import run_check
+
+    for pipeline in ("celeba", "rp"):
+        report = run_check(pipeline, steps=8, chain=4, batch=128)
+        emit(report)
+        check(report["ok"] and report["err_raw"] == 0,
+              f"chain_check {pipeline} with raw windows: {report}")
+
+
+def _trace_records(path):
+    return [json.loads(line) for line in open(path)]
+
+
+def feed_per_step(torch, tmp):
+    """(c) The per-step engine on the prefetcher through the CLIs, batch
+    128: ``cli.celeba --chain 1 --compute bf16`` for 40 steps (640 faces),
+    then ``cli.pxy`` (4 chained steps, for its aligner file) and ``cli.rp
+    --chain 1 --compute f32`` for 20 steps on it: loop step ms (host clock
+    between log records) and the main thread's median wait for a batch
+    (``EADGAN_CHAIN_TRACE``'s ``wait``), from step 2 on; the warp's
+    launches held exactly.  Returns the launches by path."""
+    from eadgan_tpu_torch.ops import stn_cuda
+
+    launches = {}
+
+    def run(label, module, argv, keys, steps, warps, **env):
+        jsonl = os.path.join(tmp, f"{label}.jsonl")
+        trace = os.path.join(tmp, f"{label}_trace.jsonl")
+        stn_cuda.reset_launch_count()  # counts from here read this run only
+        t0 = time.perf_counter()
+        with environ(EADGAN_PLATFORM="cuda", EADGAN_CHAIN_TRACE=trace, **env):
+            run_module(torch, module, ["--batch_size", "128", "--data_dir", tmp, "--ckpt_dir", tmp,
+                                       "--out_dir", os.path.join(tmp, label), "--jsonl", jsonl,
+                                       *argv])
+        wall = time.perf_counter() - t0
+        records = read_records(jsonl, keys)
+        check([r["step"] for r in records] == list(range(steps)), f"{label} steps")
+        check(stn_cuda.launch_count == warps,
+              f"{label}: warp launched {stn_cuda.launch_count} times, expected {warps}")
+        launches[label] = stn_cuda.launch_count
+        waits = [r["wait"] for r in _trace_records(trace) if r["s"] >= 2]
+        emit({"per_step_run": label, "module": module, "steps": steps, "wall_s": wall,
+              "loop_step_ms_host_clock": loop_ms(records),
+              "batch_wait_ms_median": statistics.median(waits) * 1e3,
+              "batch_wait_ms_max": max(waits) * 1e3, "warp_launches": stn_cuda.launch_count,
+              "last": records[-1]})
+
+    run("celeba_per_step", "eadgan_tpu_torch.cli.celeba",
+        ["--chain", "1", "--compute", "bf16", "--max_steps", str(FEED_STEPS), "--n_epochs", "8",
+         "--sample_interval", "1000", "--keep_states", "1"],
+        ("d_loss", "g_loss"), FEED_STEPS, FEED_STEPS + 1, EADGAN_SYNTH_N=str(FEED_FACES))
+    with environ(EADGAN_PLATFORM="cuda", EADGAN_SYNTH_POS="3"):
+        run_module(torch, "eadgan_tpu_torch.cli.pxy",
+                   ["--batch_size", "128", "--max_steps", "4", "--sample_interval", "4",
+                    "--data_dir", tmp, "--ckpt_dir", tmp, "--out_dir", os.path.join(tmp, "pxy")])
+    pxy_file = os.path.join(tmp, "encoder_pxy_0.pt")
+    check(os.path.isfile(pxy_file), "encoder_pxy_0.pt")
+    run("rp_per_step", "eadgan_tpu_torch.cli.rp",
+        ["--encoder_pxy", pxy_file, "--chain", "1", "--compute", "f32", "--n_epochs", "5",
+         "--max_steps", str(RP_STEPS), "--sample_interval", str(RP_STEPS), "--keep_states", "1"],
+        RP_KEYS, RP_STEPS, 3 * RP_STEPS + RP_GRID_WARPS, EADGAN_SYNTH_POS="3")
+    check(os.path.isfile(os.path.join(tmp, "encoder_0.pt")), "encoder_0.pt")
+    return launches, pxy_file
+
+
+def feed_raw_windows(torch, tmp):
+    """(d) ``cli.celeba --compute bf16`` at its default ``--chain 32`` for 64
+    steps on 8,192 faces, resident, then with ``EADGAN_DEVICE_DATA_MAX=0``
+    (raw windows gathered on the prefetch thread): the loop step ms from
+    ``EADGAN_CHAIN_TRACE`` and its split, the largest relative difference
+    of their losses (cuDNN is left to its defaults here, as in a user's
+    run: (b) holds the paths bit for bit), the warp once a step plus the
+    step-0 grid's."""
+    import numpy as np
+
+    from eadgan_tpu_torch.ops import stn_cuda
+
+    out, launches, losses = {}, {}, {}
+    for label, limit in (("celeba_resident", None), ("celeba_rawwin", "0")):
+        jsonl = os.path.join(tmp, f"{label}.jsonl")
+        trace = os.path.join(tmp, f"{label}_trace.jsonl")
+        env = {"EADGAN_PLATFORM": "cuda", "EADGAN_SYNTH_N": str(RAWWIN_FACES),
+               "EADGAN_CHAIN_TRACE": trace}
+        if limit is not None:
+            env["EADGAN_DEVICE_DATA_MAX"] = limit
+        stn_cuda.reset_launch_count()  # counts from here read this run only
+        t0 = time.perf_counter()
+        with environ(**env):
+            run_module(torch, "eadgan_tpu_torch.cli.celeba",
+                       ["--batch_size", "128", "--compute", "bf16", "--max_steps", str(RAWWIN_STEPS),
+                        "--sample_interval", "1000", "--keep_states", "1", "--data_dir", tmp,
+                        "--ckpt_dir", os.path.join(tmp, label),
+                        "--out_dir", os.path.join(tmp, label, "images"), "--jsonl", jsonl])
+        wall = time.perf_counter() - t0
+        records = read_records(jsonl)
+        check([r["step"] for r in records] == list(range(RAWWIN_STEPS)), f"{label} steps")
+        check(stn_cuda.launch_count == RAWWIN_STEPS + 1,
+              f"{label}: warp launched {stn_cuda.launch_count} times, expected {RAWWIN_STEPS + 1}")
+        launches[label] = stn_cuda.launch_count
+        losses[label] = [(r["d_loss"], r["g_loss"]) for r in records]
+        out[label] = {"wall_s": wall, **chained_loop_ms(trace), "last": records[-1]}
+    a, b = (np.array(losses[k]) for k in ("celeba_rawwin", "celeba_resident"))
+    emit({"raw_windows": "cli.celeba bf16 --chain 32, 64 steps", "runs": out,
+          "loss_max_rel_diff": float(np.max(np.abs(a - b) / np.abs(b))),
+          "rawwin_over_resident": out["celeba_rawwin"]["loop_step_ms_host_clock"]
+          / out["celeba_resident"]["loop_step_ms_host_clock"]})
+    return {"celeba_rawwin": launches["celeba_rawwin"]}
+
+
+def feed_dci(torch, tmp, pxy_file):
+    """(e) ``cli.score --metric DCI`` with ``--dci_regressor LassoCV``, then
+    ``RandomForest``, on the per-step rp run's aligner and encoder, on
+    61,440 synthetic sprites, without scikit-learn: wall seconds and the
+    scores (printed, not gated, as phase 4's)."""
+    for regressor in ("LassoCV", "RandomForest"):
+        out_json = os.path.join(tmp, f"dci_{regressor}.json")
+        t0 = time.perf_counter()
+        with environ(EADGAN_PLATFORM="cuda", EADGAN_SYNTH_POS=str(SCORE_SYNTH_POS)), \
+                contextlib.redirect_stdout(io.StringIO()):
+            run_module(torch, "eadgan_tpu_torch.cli.score",
+                       ["--metric", "DCI", "--dci_regressor", regressor, "--encoder_pxy", pxy_file,
+                        "--encoder", os.path.join(tmp, "encoder_0.pt"), "--data_dir", tmp,
+                        "--json_out", out_json])
+        wall = time.perf_counter() - t0
+        with open(out_json) as f:
+            scores = json.load(f)
+        keys = {f"DCI_{regressor}_disent_metric", f"DCI_{regressor}_complete_metric"}
+        # random weights after 20 steps: the scores are printed, not gated (a
+        # code no regressor uses makes DCI's entropy NaN, in the JAX package too)
+        check(set(scores) == keys and not any(math.isinf(v) for v in scores.values()),
+              f"DCI {regressor}: {scores}")
+        check("sklearn" not in sys.modules, f"DCI {regressor} imported scikit-learn")
+        emit({"dci_cli": regressor, "wall_s": wall, "scores": scores})
+
+
+def phase_host_feed(torch):
+    """(a)-(e); returns the warp's launches on the new paths."""
+    t0 = time.perf_counter()
+    feed_batcher(torch)
+    feed_chain_checks(torch)
+    with tempfile.TemporaryDirectory(prefix="eadgan_feed_") as tmp:
+        launches, pxy_file = feed_per_step(torch, tmp)
+        launches.update(feed_raw_windows(torch, tmp))
+        feed_dci(torch, tmp, pxy_file)
+    emit({"host_feed_phase_s": time.perf_counter() - t0})
+    return launches
+
 
 def main() -> None:
     import torch
@@ -2200,12 +2460,18 @@ def main() -> None:
           "two gloo ranks sharing the card as (1, 2) and four as (2, 2) with ZeRO-1 against one "
           "rank, the (2, 2) save resumed as (1, 2))", flush=True)
     warp_by_path.update(phase_model_axis(torch))
+    print("== phase 9: the host-fed data path (the native batcher on the card's host, the chained "
+          "engine's raw windows against the per-step engine on its prefetcher, the per-step CLIs, "
+          "EADGAN_DEVICE_DATA_MAX=0 against the resident dataset) and DCI's LassoCV and "
+          "RandomForest without scikit-learn)", flush=True)
+    warp_by_path.update(phase_host_feed(torch))
     # the warp's paths by the Pallas body the TPU took there: _kernel for
     # C * W > 128 (CelebA, colored dSprites), _kernel_pair otherwise
     paths = {"warp_affine": ("celeba", "pxy_color", "rp_color", "score_color", "celeba_stop",
-                             "celeba_dp", "celeba_tp", "celeba_tp_zero"),
+                             "celeba_dp", "celeba_tp", "celeba_tp_zero", "celeba_per_step",
+                             "celeba_rawwin"),
              "warp_affine_pair": ("pxy", "rp", "rp_resumed_bf16", "rp_long", "mnist", "score_gray",
-                                  "rp_gang")}
+                                  "rp_gang", "rp_per_step")}
     check(sorted(p for v in paths.values() for p in v) == sorted(warp_by_path),
           f"warp paths {sorted(warp_by_path)}")
     for k in kernels:

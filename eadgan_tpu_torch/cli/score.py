@@ -16,8 +16,9 @@ encoder, the port's own model files under the reference names
 ``cli.import_torch`` first), and exits without them unless
 ``--allow_fresh``.  The encoders and the warp run on the CUDA card
 (``EADGAN_PLATFORM=cpu`` for the CPU); the metric heads run on the host
-in numpy/scipy, so no metric but DCI's non-default regressors needs
-scikit-learn.  MIG is skipped when the dataset has no
+in numpy/scipy (``eval/heads.py``), so no metric needs scikit-learn;
+DCI's random forests (``--dci_regressor RandomForest*``) draw from
+``--seed``.  MIG is skipped when the dataset has no
 ``latents_values``.  The last line printed is ``score timing (s):``
 and a JSON object: dataset rendering or loading, metric data, and per
 metric its wall time, the Representer's device and host-preparation
@@ -126,7 +127,7 @@ def main(argv=None) -> None:
         elif name == "SAP":
             results.update(sap_score(metric_data, representer))
         elif name == "DCI":
-            results.update(dci_score(metric_data, representer, opt.dci_regressor))
+            results.update(dci_score(metric_data, representer, opt.dci_regressor, opt.seed))
         elif name == "F_score":
             results.update(fstat_score(metric_data, representer))
         wall = time.perf_counter() - t0

@@ -29,7 +29,20 @@ objective, scaling and stopping rule:
   ``||y - Xw||^2 / (2n) + alpha ||w||_1``, with scikit-learn's gap-safe
   screening, its stopping rule (a pass whose largest update is at most
   ``tol`` of the largest weight, then a duality gap at most ``tol *
-  ||y||^2``) and ``max_iter`` 1000.
+  ||y||^2``) and ``max_iter`` 1000;
+* :class:`LassoCV` (DCI's ``--dci_regressor LassoCV``): ``LassoCV()``'s
+  defaults, 100 alphas log-spaced from ``max |X^T y| / n`` down by
+  ``eps`` 1e-3, 5 unshuffled folds, each fold's path warm-started along
+  the alphas by coordinate descent on its Gram matrix (scikit-learn's
+  ``precompute="auto"`` where there are more rows than features, as in
+  DCI; with fewer it works on the rows, to the same optimum), the alpha
+  of the least mean fold MSE, then a :class:`Lasso` refit on all rows;
+* :class:`RandomForestRegressor` (DCI's ``RandomForest*``): bootstrap
+  rows, every feature tried at each split, the squared-error split at
+  the midpoint between distinct values, depth-first to ``max_depth``,
+  and ``feature_importances_`` the mean of the trees' normalized
+  impurity decreases.  Seeded: its forests are not scikit-learn's draws,
+  and equal theirs only in distribution.
 
 Inputs are cast to float64, but for the logistic regression's float32
 features (as scikit-learn keeps them).
@@ -42,7 +55,10 @@ from scipy import optimize
 from scipy.special import expit
 from scipy.stats import rankdata
 
-__all__ = ["mutual_info_score", "one_hot_roc_auc", "LogisticRegression", "LinearSVC", "Lasso"]
+__all__ = [
+    "mutual_info_score", "one_hot_roc_auc", "LogisticRegression", "LinearSVC", "Lasso", "LassoCV",
+    "RandomForestRegressor",
+]
 
 
 def mutual_info_score(labels_true, labels_pred) -> float:
@@ -331,3 +347,214 @@ class Lasso:
 
     def predict(self, X) -> np.ndarray:
         return np.asarray(X, np.float64) @ self.coef_ + self.intercept_
+
+
+def _lasso_cd_gram(Q, q, y_norm2, alpha, tol, max_iter, w):
+    """Cyclic coordinate descent for 0.5 w^T Q w - q^T w + alpha ||w||_1
+    (Q = X^T X, q = X^T y) from ``w``, updated in place, with gap-safe
+    screening (scikit-learn's ``enet_coordinate_descent_gram`` at beta =
+    0)."""
+    n_features = Q.shape[0]
+    diag = np.diag(Q).copy()
+    Qw = Q @ w
+    d_w_tol, tol = tol, tol * y_norm2
+
+    def gap():
+        xta = q - Qw
+        dual_norm = np.max(np.abs(xta)) if n_features else 0.0
+        q_dot_w = w @ q
+        r2 = y_norm2 + w @ Qw - 2.0 * q_dot_w
+        primal = 0.5 * r2 + alpha * np.sum(np.abs(w))
+        scale = alpha / dual_norm if dual_norm > alpha else 1.0
+        return primal - (-0.5 * scale ** 2 * r2 + scale * (y_norm2 - q_dot_w)), xta, dual_norm
+
+    def screen(g, xta, dual_norm, excluded):
+        radius = np.sqrt(2.0 * abs(g)) / alpha
+        active = []
+        for j in range(n_features):
+            if excluded[j]:
+                continue
+            d_j = (1.0 - abs(xta[j] / max(alpha, dual_norm))) / np.sqrt(diag[j])
+            if d_j <= radius:
+                active.append(j)
+            else:
+                if w[j] != 0.0:
+                    Qw[:] -= w[j] * Q[j]
+                    w[j] = 0.0
+                excluded[j] = True
+        return active
+
+    g, xta, dual_norm = gap()
+    if 0.0 <= g <= tol:
+        return w
+    excluded = diag == 0.0
+    w[excluded] = 0.0
+    active = screen(g, xta, dual_norm, excluded)
+    for n_iter in range(max_iter):
+        w_max = d_w_max = 0.0
+        for j in active:
+            w_j = w[j]
+            tmp = q[j] - Qw[j] + w_j * diag[j]
+            w[j] = np.sign(tmp) * max(abs(tmp) - alpha, 0.0) / diag[j]
+            if w[j] != w_j:
+                Qw += (w[j] - w_j) * Q[j]
+            d_w_max = max(d_w_max, abs(w[j] - w_j))
+            w_max = max(w_max, abs(w[j]))
+        if w_max == 0.0 or d_w_max / w_max <= d_w_tol or n_iter == max_iter - 1:
+            g, xta, dual_norm = gap()
+            if g <= tol:
+                break
+            active = screen(g, xta, dual_norm, excluded)
+    return w
+
+
+def _kfold(n: int, n_splits: int):
+    """scikit-learn's unshuffled ``KFold``: contiguous test folds, the
+    first ``n % n_splits`` one row longer; train rows in order."""
+    sizes = np.full(n_splits, n // n_splits)
+    sizes[: n % n_splits] += 1
+    stops = np.cumsum(sizes)
+    rows = np.arange(n)
+    for start, stop in zip(stops - sizes, stops):
+        yield np.concatenate([rows[:start], rows[stop:]]), rows[start:stop]
+
+
+class LassoCV:
+    """:class:`Lasso` with its ``alpha`` chosen by 5-fold cross-validation
+    over a path of 100 alphas, ``LassoCV()`` at scikit-learn 1.9's
+    defaults (see the module docstring)."""
+
+    EPS, N_ALPHAS, N_FOLDS = 1e-3, 100, 5
+    TOL, MAX_ITER = Lasso.TOL, Lasso.MAX_ITER
+
+    def fit(self, X, y) -> "LassoCV":
+        X = np.asarray(X, np.float64)
+        y = np.asarray(y, np.float64).ravel()
+        n = X.shape[0]
+        yc = y - y.mean()
+        xy = X.T @ yc - X.mean(axis=0) * np.sum(yc)
+        alpha_max = np.sqrt(np.max(xy ** 2)) / n
+        if alpha_max <= np.finfo(np.float64).resolution:
+            self.alphas_ = np.full(self.N_ALPHAS, np.finfo(np.float64).resolution)
+        else:
+            self.alphas_ = np.geomspace(alpha_max, alpha_max * self.EPS, num=self.N_ALPHAS)
+        mse = []
+        for train, test in _kfold(n, self.N_FOLDS):
+            x_offset, y_offset = X[train].mean(axis=0), y[train].mean()
+            Xt, yt = X[train] - x_offset, y[train] - y_offset
+            gram, q, y_norm2 = Xt.T @ Xt, Xt.T @ yt, yt @ yt
+            w = np.zeros(X.shape[1])
+            coefs = np.empty((X.shape[1], self.N_ALPHAS))
+            for i, alpha in enumerate(self.alphas_):
+                w = _lasso_cd_gram(gram, q, y_norm2, alpha * len(train), self.TOL, self.MAX_ITER, w)
+                coefs[:, i] = w
+            residues = X[test] @ coefs - y[test][:, None] + (y_offset - x_offset @ coefs)
+            mse.append((residues ** 2).mean(axis=0))
+        self.mse_path_ = np.stack(mse, axis=1)
+        self.alpha_ = self.alphas_[np.argmin(self.mse_path_.mean(axis=1))]
+        final = Lasso(self.alpha_).fit(X, y)
+        self.coef_, self.intercept_ = final.coef_, final.intercept_
+        return self
+
+    def predict(self, X) -> np.ndarray:
+        return np.asarray(X, np.float64) @ self.coef_ + self.intercept_
+
+
+_FEATURE_THRESHOLD = 1e-7  # scikit-learn's: values closer than this are not split apart
+
+
+def _best_split(X, y, w, orders, rng):
+    """The squared-error split of a node whose rows, sorted by each
+    feature, are ``orders``: (proxy improvement, feature, threshold), or
+    None when every feature is constant there.  Features are tried in a
+    random order and the first best is kept, as scikit-learn does."""
+    best = None
+    for f in rng.permutation(X.shape[1]):
+        o = orders[f]
+        x = X[o, f]
+        valid = x[1:] > x[:-1] + _FEATURE_THRESHOLD
+        if not valid.any():
+            continue
+        cw, cs = np.cumsum(w[o]), np.cumsum(w[o] * y[o])
+        wl, sl = cw[:-1], cs[:-1]
+        proxy = np.where(valid, sl * sl / wl + (cs[-1] - sl) ** 2 / (cw[-1] - wl), -np.inf)
+        p = int(np.argmax(proxy))
+        if best is None or proxy[p] > best[0]:
+            threshold = x[p] / 2.0 + x[p + 1] / 2.0
+            if threshold == x[p + 1] or not np.isfinite(threshold):
+                threshold = x[p]
+            best = (proxy[p], f, threshold)
+    return best
+
+
+def _impurity(y, w):
+    """A node's weighted squared error: its weighted variance."""
+    total = w.sum()
+    mean = (w * y).sum() / total
+    return (w * y * y).sum() / total - mean * mean, total
+
+
+def _tree_importances(X, y, w, presorted, max_depth, rng):
+    """Grow one tree depth first on the rows of weight ``w`` > 0 and
+    return its normalized impurity-decrease importances, or None for a
+    tree of a single node."""
+    importances = np.zeros(X.shape[1])
+    root = [o[w[o] > 0] for o in presorted]
+    stack = [(root, 0, *_impurity(y[root[0]], w[root[0]]))]
+    root_weight = stack[0][3]
+    splits = 0
+    while stack:
+        orders, depth, impurity, weight = stack.pop()
+        if depth >= max_depth or len(orders[0]) < 2 or impurity <= np.finfo(np.float64).eps:
+            continue
+        split = _best_split(X, y, w, orders, rng)
+        if split is None:
+            continue
+        _, f, threshold = split
+        left = X[:, f] <= threshold
+        children = []
+        for side in (left, ~left):
+            child = [o[side[o]] for o in orders]
+            children.append((child, depth + 1, *_impurity(y[child[0]], w[child[0]])))
+        importances[f] += weight * impurity - sum(c[3] * c[2] for c in children)
+        splits += 1
+        stack.extend(reversed(children))  # the left child first, depth first
+    if not splits:
+        return None
+    importances /= root_weight
+    total = importances.sum()
+    return importances / total if total > 0 else importances
+
+
+class RandomForestRegressor:
+    """A forest of ``n_estimators`` squared-error regression trees, each
+    grown on a bootstrap draw of the rows (as weights) to ``max_depth``
+    with every feature tried at each split, drawn from ``random_state``.
+    ``feature_importances_``: the mean of the trees' normalized
+    impurity-decrease importances, normalized to sum 1.  DCI reads only
+    those: the out-of-bag score the JAX package's call asks for
+    (``oob_score=True``) is not computed."""
+
+    def __init__(self, max_depth: int, n_estimators: int = 100, random_state: int = 0):
+        self.max_depth = max_depth
+        self.n_estimators = n_estimators
+        self.random_state = random_state
+
+    def fit(self, X, y) -> "RandomForestRegressor":
+        X = np.asarray(X, np.float64)
+        y = np.asarray(y, np.float64).ravel()
+        n = X.shape[0]
+        rng = np.random.default_rng(self.random_state)
+        presorted = [np.argsort(X[:, f], kind="stable") for f in range(X.shape[1])]
+        trees = []
+        for _ in range(self.n_estimators):
+            w = np.bincount(rng.integers(0, n, n), minlength=n).astype(np.float64)
+            imp = _tree_importances(X, y, w, presorted, self.max_depth, rng)
+            if imp is not None:
+                trees.append(imp)
+        if not trees:
+            self.feature_importances_ = np.zeros(X.shape[1])
+        else:
+            mean = np.mean(trees, axis=0)
+            self.feature_importances_ = mean / mean.sum()
+        return self

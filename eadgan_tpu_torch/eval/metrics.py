@@ -7,8 +7,8 @@ scikit-learn, so no default path needs it.  Each function takes the
 prepared ``metric_data`` (:mod:`eadgan_tpu_torch.eval.data`) and a
 representer, any callable from a batch of images to (B, codes) numpy
 representations; parity with the corresponding reference script is
-noted per function.  DCI's ``LassoCV`` and ``RandomForest*`` regressors
-are not default and still use scikit-learn, imported when asked for.
+noted per function.  Nothing here imports scikit-learn: DCI's
+``LassoCV`` and ``RandomForest*`` regressors are the heads' too.
 """
 
 from __future__ import annotations
@@ -19,8 +19,10 @@ import numpy as np
 
 from eadgan_tpu_torch.eval.heads import (
     Lasso,
+    LassoCV,
     LinearSVC,
     LogisticRegression,
+    RandomForestRegressor,
     mutual_info_score,
     one_hot_roc_auc,
 )
@@ -161,40 +163,36 @@ def _entropic_scores(r: np.ndarray):
     return [1 - _norm_entropy(p) for p in ps.T]
 
 
-def _sklearn_regressors(regressor: str, n_factors: int):
-    """The non-default DCI regressors, from scikit-learn."""
-    try:
-        from sklearn.ensemble import RandomForestRegressor
-        from sklearn.linear_model import LassoCV
-    except ImportError as e:
-        raise ImportError(
-            f"DCI regressor {regressor!r} needs scikit-learn, which is not installed; "
-            "the default regressor 'Lasso' does not"
-        ) from e
+def _regressors(regressor: str, n_factors: int, seed: int):
+    """One regressor maker per factor and the attribute holding its
+    importances, for each ``--dci_regressor`` name (the JAX package's
+    table, ``eadgan_tpu/eval/metrics.py``); the forests drawn from
+    ``seed``."""
+    if regressor == "Lasso":
+        return [lambda: Lasso(alpha=0.02)] * n_factors, "coef_"
     if regressor == "LassoCV":
-        return [lambda: LassoCV()] * n_factors, "coef_"
+        return [LassoCV] * n_factors, "coef_"
     if regressor == "RandomForest":
         depths = [4, 5, 2, 5, 5][:n_factors]
     elif regressor == "RandomForestIBGAN":
         depths = [4, 2, 4, 2, 2][:n_factors]
-    else:
+    elif regressor.startswith("RandomForestEnum"):
         depths = [int(regressor[len("RandomForestEnum"):])] * n_factors
+    else:
+        raise NotImplementedError(regressor)
     makers = [
-        (lambda dep=dep: RandomForestRegressor(max_depth=dep, oob_score=True)) for dep in depths
+        (lambda dep=dep: RandomForestRegressor(max_depth=dep, random_state=seed)) for dep in depths
     ]
     return makers, "feature_importances_"
 
 
-def dci_score(metric_data, representer, regressor: str = "Lasso") -> Dict:
+def dci_score(metric_data, representer, regressor: str = "Lasso", seed: int = 0) -> Dict:
     """DCI disentanglement/completeness (dSprites/score/DCI.py:236-398):
     one regressor per factor over normalized codes; importance matrix ->
     entropic scores; weighted disentanglement + mean completeness.
-    Regressor variants: Lasso (alpha=0.02, the default), and from
-    scikit-learn LassoCV, RandomForest, RandomForestIBGAN,
-    RandomForestEnum<d>."""
-    if not (regressor in ("Lasso", "LassoCV", "RandomForest", "RandomForestIBGAN")
-            or regressor.startswith("RandomForestEnum")):
-        raise NotImplementedError(regressor)
+    Regressor variants (``eval/heads.py``): Lasso (alpha=0.02, the
+    default), LassoCV, and the random forests RandomForest,
+    RandomForestIBGAN and RandomForestEnum<d>, drawn from ``seed``."""
     d = metric_data["img_with_latent"]
     codes = representer(d["img"])
     latents = d["latent"]
@@ -209,11 +207,7 @@ def dci_score(metric_data, representer, regressor: str = "Lasso") -> Dict:
     latents = normalize(latents)
 
     n_factors = latents.shape[-1]
-    if regressor == "Lasso":
-        makers, attr = [lambda: Lasso(alpha=0.02)] * n_factors, "coef_"
-    else:
-        makers, attr = _sklearn_regressors(regressor, n_factors)
-
+    makers, attr = _regressors(regressor, n_factors, seed)
     R = []
     for j in range(n_factors):
         reg = makers[j]()

@@ -5,27 +5,33 @@ pxy_color|rp|rp_color|mnist] [--steps 8] [--chain 4] [--batch 128]`` builds
 one pipeline's f32 train state and synthetic dataset (uint8; MNIST's
 float32)
 (``utils/profiler.py::build_step``) and runs ``--steps`` steps of
-``train/engine.py::run_epochs`` three times, each from a copy of that
+``train/engine.py::run_epochs`` four times, each from a copy of that
 state, with the pipeline's batch arguments and events every ``--chain``
 steps:
 
 * per-step runs A and B (``chain=1``): each batch gathered and
-  normalized on the host, copied to the card and passed to the step;
+  normalized on the host by the engine's prefetch thread (the native
+  batcher for uint8 images), into pinned memory, copied to the card on a
+  stream of its own and passed to the step;
 * the chained run C (``chain=--chain``): the windows ``plan_windows``
   makes, the dataset resident on the card and each batch gathered there,
   the run's first step eager, then the step captured once and replayed,
   the metrics drained one window behind, the event batches made on the
   card, and the events run on the engine's worker with a snapshot of the
-  state (``EADGAN_SYNC_EVENTS=1`` in the environment runs them inline).
+  state (``EADGAN_SYNC_EVENTS=1`` in the environment runs them inline);
+* the chained run D: C with ``EADGAN_DEVICE_DATA_MAX=0``, so the dataset
+  stays on the host and each window carries its raw rows, gathered on a
+  prefetch thread and normalized in the graph.
 
 It reports ``spread``, the largest relative difference of a logged loss
-between A and B, and ``err``, the largest between C and A, with the
-warp's launches in C.  cuDNN is held to its deterministic algorithms, so
-a step is a function of its inputs: the check passes when ``spread`` and
-``err`` are both 0, C logged every step, ran its events at A's steps on
-A's batches bit for bit, with the first parameter of the state's first
-model as A's there, ended at A's step, and launched the warp
-``WARPS_PER_STEP`` times a step.
+between A and B, and ``err`` and ``err_raw``, the largest between C and
+A and between D and A, with the warp's launches in C and in D.  cuDNN is
+held to its deterministic algorithms, so a step is a function of its
+inputs: the check passes when ``spread``, ``err`` and ``err_raw`` are all
+0, C and D logged every step, ran their events at A's steps on A's
+batches bit for bit, with the first parameter of the state's first model
+as A's there, ended at A's step, and launched the warp ``WARPS_PER_STEP``
+times a step.
 
 Prints one JSON line; exits non-zero when the check fails.  Needs a CUDA
 card.
@@ -36,7 +42,9 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import os
 import sys
+from unittest import mock
 
 import numpy as np
 import torch
@@ -82,7 +90,7 @@ def run_check(pipeline: str = "pxy", steps: int = 8, chain: int = 4, batch: int 
     """The three runs; returns the report (see the module docstring)."""
     state0, step, data, prep = build_step(pipeline, batch)
 
-    def run(k):
+    def run(k, raw=False):
         records, events = _Records(), []
 
         def on_batch(i, state, metrics, batches):
@@ -91,40 +99,46 @@ def run_check(pipeline: str = "pxy", steps: int = 8, chain: int = 4, batch: int 
                 events.append((i, batches[0].cpu().numpy(),
                                next(model.parameters()).detach().cpu().numpy()))
 
-        state = run_epochs(
-            n_epochs=steps, data=data, batch_size=batch, state=snapshot_state(state0), step_fn=step,
-            on_batch=on_batch, device="cuda", max_steps=steps, logger=records, chain=k,
-            chain_periods=(chain,), **prep,
-        )
+        before = stn_cuda.launch_count
+        with mock.patch.dict(os.environ, {"EADGAN_DEVICE_DATA_MAX": "0"} if raw else {}):
+            state = run_epochs(
+                n_epochs=steps, data=data, batch_size=batch, state=snapshot_state(state0),
+                step_fn=step, on_batch=on_batch, device="cuda", max_steps=steps, logger=records,
+                chain=k, chain_periods=(chain,), **prep,
+            )
         torch.cuda.synchronize()
-        return state.step, records.steps, events
+        return state.step, records.steps, events, stn_cuda.launch_count - before
 
     with _cudnn_deterministic():
-        a, b = run(1), run(1)
-        before = stn_cuda.launch_count
-        c = run(chain)
-        warps = stn_cuda.launch_count - before
-
+        runs = [run(1), run(1), run(chain), run(chain, raw=True)]
+    a = runs[0]
     keys = sorted(a[1][0])
-    table = [np.array([[r[s][k] for k in keys] for s in sorted(r)]) for r in (a[1], b[1], c[1])]
-    logged = [sorted(r[1]) for r in (a, b, c)]
-    events_equal = [e[0] for e in c[2]] == [e[0] for e in a[2]] and all(
-        np.array_equal(x, y) and np.array_equal(px, py)
-        for (_, x, px), (_, y, py) in zip(c[2], a[2])
-    )
-    spread = _rel(table[1], table[0]) if logged[1] == logged[0] else float("inf")
-    err = _rel(table[2], table[0]) if logged[2] == logged[0] else float("inf")
+    table = [np.array([[r[1][s][k] for k in keys] for s in sorted(r[1])]) for r in runs]
+
+    def events_equal(r):
+        return [e[0] for e in r[2]] == [e[0] for e in a[2]] and all(
+            np.array_equal(x, y) and np.array_equal(px, py)
+            for (_, x, px), (_, y, py) in zip(r[2], a[2])
+        )
+
+    def rel(i):
+        return _rel(table[i], table[0]) if sorted(runs[i][1]) == sorted(a[1]) else float("inf")
+
+    spread, err, err_raw = rel(1), rel(2), rel(3)
     want_warps = WARPS_PER_STEP[pipeline] * steps
+    chained = runs[2:]
     return {
         "chain_check": pipeline, "batch": batch, "steps": steps, "chain": chain,
-        "keys": keys, "spread": spread, "err": err,
-        "final_step": [a[0], c[0]], "event_steps": [e[0] for e in c[2]],
-        "event_batches_equal": events_equal, "warp_launches": warps,
-        "expected_warp_launches": want_warps,
+        "keys": keys, "spread": spread, "err": err, "err_raw": err_raw,
+        "final_step": [r[0] for r in runs], "event_steps": [e[0] for e in runs[2][2]],
+        "event_batches_equal": [events_equal(r) for r in chained],
+        "warp_launches": [r[3] for r in chained], "expected_warp_launches": want_warps,
         "last_per_step": table[0][-1].tolist(), "last_chained": table[2][-1].tolist(),
-        "ok": bool(np.isfinite(table[2]).all()) and logged[0] == list(range(steps))
-        and spread == 0 and err == 0 and events_equal and a[0] == c[0] == steps
-        and warps == want_warps,
+        "last_raw_windows": table[3][-1].tolist(),
+        "ok": all(np.isfinite(t).all() for t in table) and sorted(a[1]) == list(range(steps))
+        and spread == 0 and err == 0 and err_raw == 0
+        and all(events_equal(r) for r in chained)
+        and all(r[0] == steps for r in runs) and all(r[3] == want_warps for r in chained),
     }
 
 

@@ -10,7 +10,9 @@ replayed K times per window:
 - the dataset stays resident on the card as it is, uint8 images or
   MNIST's float32 ones, and each step's batch is gathered, flipped and
   normalized inside the graph (:func:`normalize_prepare`), from int32
-  row indices copied in once a window;
+  row indices copied in once a window; a dataset above
+  ``EADGAN_DEVICE_DATA_MAX`` instead sends each window's raw rows,
+  gathered on the host, and the graph flips and normalizes them;
 - the step's metrics are packed into one (M,) float32 tensor, copied
   into row i of a (K, M) window buffer after replay i, so a window
   returns its metrics in one tensor;
@@ -162,23 +164,31 @@ def make_chained_step(body: Callable, prepare: Optional[Callable] = None,
 
 
 def normalize_prepare(scale: float, shift: float, flip: bool = False,
-                      add_channel: bool = False):
-    """The step's batch gathered from the dataset resident on the card,
-    in the JAX function's op order (its ``gather=True`` form): ``consts =
-    (dataset,)`` is the dataset, uint8 or float32 (MNIST, taken with
-    scale 1 and shift 0), and a row carries int32 indices
-    (``index_select``).  With ``flip``, a bool mask row mirrors those
-    images along the width while still uint8 (``torch.where``, no host
-    sync), after the channel axis of 2-D images is added; then
-    ``x.float() * scale + shift`` in float32.  Without flip the channel
-    axis comes last.  The values equal the per-step engine's host batches
-    (``train/engine.py::epoch_batches``) bit for bit: a flip permutes
-    pixels, and both compute one float32 multiply then one add."""
+                      add_channel: bool = False, gather: bool = True):
+    """The step's batch from a window row, in the JAX function's op order.
+
+    ``gather=True`` (the resident dataset): ``consts = (dataset,)`` is the
+    dataset on the card, uint8 or float32 (MNIST, taken with scale 1 and
+    shift 0), and a row carries int32 indices (``index_select``).
+    ``gather=False`` (the raw windows of a dataset above
+    ``EADGAN_DEVICE_DATA_MAX``): a row is the raw uint8 batch (B, H, W[,
+    C]) itself, gathered on the host, and ``consts`` is unused.
+
+    With ``flip``, a bool mask row mirrors those images along the width
+    while still uint8 (``torch.where``, no host sync), after the channel
+    axis of 2-D images is added; then ``x.float() * scale + shift`` in
+    float32.  Without flip the channel axis comes last.  The values equal
+    the per-step engine's host batches (``data/native.py``) bit for bit,
+    on either path: a flip permutes pixels, and both compute one float32
+    multiply then one add."""
+
+    def load(consts, x):
+        return torch.index_select(consts[0], 0, x) if gather else x
 
     if flip:
 
-        def prep(consts, idx, mask):
-            x = torch.index_select(consts[0], 0, idx)
+        def prep(consts, x, mask):
+            x = load(consts, x)
             if add_channel:
                 x = x[..., None]
             x = torch.where(mask[:, None, None, None], x.flip(2), x)
@@ -186,8 +196,8 @@ def normalize_prepare(scale: float, shift: float, flip: bool = False,
 
     else:
 
-        def prep(consts, idx):
-            img = torch.index_select(consts[0], 0, idx).float() * scale + shift
+        def prep(consts, x):
+            img = load(consts, x).float() * scale + shift
             if add_channel:
                 img = img[..., None]
             return (img,)

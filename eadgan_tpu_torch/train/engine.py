@@ -4,17 +4,22 @@ PyTorch counterpart of the single-device paths of
 ``eadgan_tpu/train/engine.py``.  Both engines draw the same epoch
 permutations from ``np.random.default_rng(seed)`` and the same per-batch
 flip masks from ``np.random.default_rng([seed, 0x464C4950])``, one draw
-per batch in batch order, so both packages feed their steps the same
-batches:
+per batch in batch order (:func:`_schedule`), so both packages feed their
+steps the same batches:
 
 * the **per-step engine** (``chain=1``) gathers, normalizes and flips
-  each batch in numpy on the host, copies it to the device and calls
-  the step;
+  each batch on a :class:`~eadgan_tpu_torch.data.loader.Prefetcher`
+  thread (uint8 images through the native batcher of ``data/native.py``,
+  MNIST's float32 ones in numpy) into pinned memory, copies it to the
+  card on a stream of its own while the current step runs, and calls the
+  step on it;
 * the **chained engine** (``chain > 1``, the CLIs' default) runs windows
   of up to ``chain`` steps through ``train/chain.py``: on the card, one
   CUDA graph of the step replayed per step, each batch gathered on the
   card from the resident dataset (uint8 images, or MNIST's float32
-  images already in [-1, 1]); side effects run at the window ends that
+  images already in [-1, 1]), or, for a dataset above
+  ``EADGAN_DEVICE_DATA_MAX`` bytes, from raw windows gathered on the host
+  by a prefetch thread; side effects run at the window ends that
   ``plan_windows`` puts on the event steps, on a background
   ``EventWorker`` against a snapshot of the state (``EADGAN_SYNC_EVENTS=1``
   runs them inline).
@@ -47,8 +52,10 @@ from typing import Callable, Iterable, Optional
 import numpy as np
 import torch
 
+from eadgan_tpu_torch.data import native
+from eadgan_tpu_torch.data.loader import PinnedStager, Prefetcher, Staged
 from eadgan_tpu_torch.models.layers import no_stat_updates
-from eadgan_tpu_torch.parallel.mesh import shard_batch, shard_window
+from eadgan_tpu_torch.parallel.mesh import shard_window
 from eadgan_tpu_torch.train.chain import (
     EventWorker,
     LazyHostBatch,
@@ -63,6 +70,40 @@ from eadgan_tpu_torch.utils.logging import MetricLogger
 __all__ = ["run_epochs", "epoch_batches", "generator_apply"]
 
 _FLIP_STREAM = 0x464C4950
+_PREFETCH_DEPTH = 2  # batches or windows a prefetch thread prepares ahead of the step
+_DEVICE_DATA_MAX = 4 << 30  # EADGAN_DEVICE_DATA_MAX's default, as in the JAX engine
+
+
+def _schedule(n_rows, batch_size, n_epochs, seed, start_step, stop, chain=1, chain_periods=(),
+              random_flip=False, rows=slice(None)):
+    """Yield ``(epoch, start, k, idx, mask)`` for each window of up to
+    ``chain`` steps (``plan_windows``) from step ``start_step`` up to
+    ``stop``: ``idx`` the (k, b) row indices, ``mask`` the (k, b) flip
+    masks (None without ``random_flip``), cut to this rank's ``rows``.
+    For each epoch a permutation of the rows, cut into full batches (the
+    ragged tail is dropped); the epoch holding ``start_step`` takes its
+    remaining batches from the start of its permutation.  The masks are
+    drawn for the whole batch, one draw per batch in batch order, so every
+    rank and every ``chain`` sees the same stream."""
+    host_rng = np.random.default_rng(seed)
+    flip_rng = np.random.default_rng([seed, _FLIP_STREAM])
+    n_batches = n_rows // batch_size
+    s = start_step
+    epoch = s // max(n_batches, 1)
+    while epoch < n_epochs and s < stop:
+        perm = host_rng.permutation(n_rows)
+        epoch_end = min((epoch + 1) * n_batches, stop)
+        first = s
+        for ws, k in plan_windows(s, epoch_end - s, chain, chain_periods, stop):
+            idx = perm[(ws - first) * batch_size : (ws - first + k) * batch_size]
+            idx = idx.reshape(k, batch_size)
+            mask = None
+            if random_flip:
+                mask = shard_window(np.stack([flip_rng.random(batch_size) < 0.5 for _ in range(k)]),
+                                    rows)
+            yield epoch, ws, k, shard_window(idx, rows), mask
+        s = epoch_end
+        epoch += 1
 
 
 def epoch_batches(
@@ -70,40 +111,24 @@ def epoch_batches(
     start_step: int = 0, scale: float = 1.0, shift: float = 0.0,
     random_flip: bool = False, rows: slice = slice(None),
 ):
-    """Yield ``(epoch, host_batch)`` in training order from step
-    ``start_step`` on: for each epoch a permutation of ``data`` (uint8,
-    or float32 taken with scale 1 and shift 0, which leave it as it is),
-    cut into full batches (the ragged tail is dropped), each gathered as
-    float32 ``x * scale + shift`` and, with ``random_flip``, mirrored
-    along the width where a fresh draw is below 0.5.  A 3-D (N, H, W)
-    ``data`` (dSprites) gains a channel axis, (B, H, W, 1), as the JAX
-    engine's ``add_channel`` gives it.  The epoch holding ``start_step``
-    yields only its remaining batches, from the start of its
-    permutation.  ``rows`` keeps those rows of each batch (a data-parallel
-    rank's slice, ``parallel.host_batch_slice``); the flip draws are made
-    for the whole batch first, so every rank's stream stays the same."""
-    host_rng = np.random.default_rng(seed)
-    flip_rng = np.random.default_rng([seed, _FLIP_STREAM])
-    n = data.shape[0]
-    n_batches = n // batch_size
-    first_epoch, done = divmod(start_step, max(n_batches, 1))
-    for epoch in range(first_epoch, n_epochs):
-        perm = host_rng.permutation(n)
-        skip = done if epoch == first_epoch else 0
-        for s in range(0, (n_batches - skip) * batch_size, batch_size):
-            idx = perm[s : s + batch_size]
-            mask = shard_batch(flip_rng.random(len(idx)), rows) < 0.5 if random_flip else None
-            idx = shard_batch(idx, rows)
-            out = data[idx].astype(np.float32) * scale + shift
-            if random_flip:
-                out[mask] = out[mask, :, ::-1]
-            if data.ndim == 3:
-                # a reshape, not ``out[..., None]``: numpy gives a new axis
-                # stride 0, which the copy to the card keeps, and cuDNN
-                # takes another algorithm for that layout than for the
-                # chained engine's batches (stride 1), which then differ
-                out = out.reshape(out.shape + (1,))
-            yield epoch, out
+    """Yield ``(epoch, host_batch)``, the batches the per-step engine
+    trains on from step ``start_step`` on (:func:`_schedule`), each made
+    by the plain numpy gathers of ``data/native.py``: float32 ``x * scale
+    + shift`` of ``data`` (uint8, or float32 taken with scale 1 and shift
+    0, which leave it as it is) and, with ``random_flip``, mirrored along
+    the width where a fresh draw is below 0.5.  A 3-D (N, H, W) ``data``
+    (dSprites) gains a channel axis, (B, H, W, 1), as the JAX engine's
+    ``add_channel`` gives it.  ``rows`` keeps those rows of each batch (a
+    data-parallel rank's slice, ``parallel.host_batch_slice``).  The
+    reference the engines' batches are held to (the profiler's first
+    batch, the tests)."""
+    total = n_epochs * (data.shape[0] // batch_size)
+    for epoch, _, _, idx, mask in _schedule(data.shape[0], batch_size, n_epochs, seed, start_step,
+                                            total, random_flip=random_flip, rows=rows):
+        if random_flip:
+            yield epoch, native.gather_normalize_flip_plain(data, idx[0], mask[0], scale, shift)
+        else:
+            yield epoch, native.gather_normalize_plain(data, idx[0], scale, shift)
 
 
 def run_epochs(
@@ -358,40 +383,83 @@ def _run_epochs_per_step(
     *, n_epochs, data, batch_size, state, step_fn, on_batch, device, seed, max_steps, logger,
     metric_keys, scale, shift, random_flip, beat, stop_event, verify_progress, rows,
 ):
-    """One eagerly launched step a batch, each batch gathered on the host
-    (:func:`epoch_batches`, this rank's ``rows`` of it).  With
-    ``verify_progress`` (a watchdog is armed) each step's metrics are
-    copied to the host before the beat, which proves the device finished
-    the step.  ``on_batch`` None: no side effects (a rank other than 0)."""
+    """One eagerly launched step a batch, each batch (this rank's ``rows``
+    of it) prepared on a :class:`~eadgan_tpu_torch.data.loader.Prefetcher`
+    thread up to two batches ahead, as the JAX engine does: uint8 images
+    through the native gather (``data/native.py``, with the flip masks
+    drawn on that thread), float32 ones in numpy, written into pinned
+    memory and copied to the card on a stream of their own
+    (:class:`~eadgan_tpu_torch.data.loader.PinnedStager`); the step's
+    stream waits for the copy.  The batches equal :func:`epoch_batches`'
+    bit for bit.  With ``verify_progress`` (a watchdog is armed) each
+    step's metrics are copied to the host before the beat, which proves
+    the device finished the step.  ``on_batch`` None: no side effects (a
+    rank other than 0).  ``EADGAN_CHAIN_TRACE=<path>`` appends one record
+    a step of host seconds: ``wait`` (for the batch), ``step`` (the step
+    enqueued) and ``cb`` (logging, ``on_batch``, the beat)."""
     n_batches = data.shape[0] // batch_size
     start_step = state.step
     batches_done = start_step
-    for epoch, host in epoch_batches(
-        data, batch_size, n_epochs, seed=seed, start_step=start_step,
-        scale=scale, shift=shift, random_flip=random_flip, rows=rows,
-    ):
-        batch = torch.from_numpy(host).to(device)
-        state, metrics = step_fn(state, batch)
-        if logger is not None:
-            shown = {k: metrics[k] for k in metric_keys} if metric_keys else metrics
-            logger.log(
-                batches_done,
-                shown,
-                epoch=epoch,
-                n_epochs=n_epochs,
-                batch=batches_done % n_batches,
-                n_batches=n_batches,
-            )
-        if on_batch is not None:
-            on_batch(batches_done, state, metrics, (batch,))
-        batches_done += 1
-        if verify_progress:
-            torch.stack([torch.as_tensor(v).float().reshape(()) for v in metrics.values()]).cpu()
-        beat(batches_done)
-        if stop_event is not None and stop_event.is_set():
-            break
-        if max_steps and batches_done - start_step >= max_steps:
-            break
+    total = n_epochs * n_batches
+    stop = min(total, start_step + max_steps) if max_steps else total
+    if data.dtype == np.uint8:
+        data = np.ascontiguousarray(data)  # the native gather reads C-contiguous rows
+        gather = native.gather_normalize_flip if random_flip else native.gather_normalize
+    else:
+        gather = native.gather_normalize_plain
+    shape = native.output_shape(data, len(range(batch_size)[rows]))
+    stager = PinnedStager(device, slots=_PREFETCH_DEPTH + 2)
+
+    def place(item):
+        epoch, _, _, idx, mask = item
+        flip = (mask[0],) if random_flip else ()
+
+        def fill(out):
+            gather(data, idx[0], *flip, scale, shift, out=out)
+
+        return epoch, stager.stage([(shape, np.float32, fill)])
+
+    feed = Prefetcher(
+        _schedule(data.shape[0], batch_size, n_epochs, seed, start_step, stop,
+                  random_flip=random_flip, rows=rows),
+        place=place, depth=_PREFETCH_DEPTH,
+    )
+    trace_path = os.environ.get("EADGAN_CHAIN_TRACE", "")
+    trace = open(trace_path, "a") if trace_path else None
+    try:
+        t_prev = time.perf_counter()
+        for epoch, staged in feed:
+            t0 = time.perf_counter()
+            wait, t_prev = t0 - t_prev, t0
+            (batch,) = staged.get()
+            state, metrics = step_fn(state, batch)
+            t1 = time.perf_counter()
+            if logger is not None:
+                shown = {k: metrics[k] for k in metric_keys} if metric_keys else metrics
+                logger.log(
+                    batches_done,
+                    shown,
+                    epoch=epoch,
+                    n_epochs=n_epochs,
+                    batch=batches_done % n_batches,
+                    n_batches=n_batches,
+                )
+            if on_batch is not None:
+                on_batch(batches_done, state, metrics, (batch,))
+            batches_done += 1
+            if verify_progress:
+                torch.stack([torch.as_tensor(v).float().reshape(()) for v in metrics.values()]).cpu()
+            beat(batches_done)
+            t_prev = time.perf_counter()
+            if trace is not None:
+                trace.write(json.dumps({"s": batches_done - 1, "k": 1, "wait": wait,
+                                        "step": t1 - t0, "cb": t_prev - t1}) + "\n")
+            if stop_event is not None and stop_event.is_set():
+                break
+    finally:
+        feed.close()
+        if trace is not None:
+            trace.close()
     return state
 
 
@@ -404,20 +472,29 @@ def _run_epochs_chained(
     train.chain.ChainedStep` of ``step_fn``, after
     ``eadgan_tpu/train/engine.py::_run_epochs_chained``.
 
-    The dataset is staged on ``device`` once, as it is: uint8 images
-    (real CelebA, 2.4 GB, and real dSprites, 2.9 GB, take a few percent
-    of an 80 GB card) or float32 ones (real MNIST at 32x32, 246 MB); a
-    dataset larger than the card's free memory raises.  A window then
-    carries only its (k, B) int32 row indices, plus the (k, B) flip
-    masks, copied in once from pinned host memory, and the batches are
-    gathered on the card.
+    A dataset of at most ``EADGAN_DEVICE_DATA_MAX`` bytes (default 4 GiB,
+    as in the JAX engine) is staged on ``device`` once, as it is: uint8
+    images (real CelebA, 2.4 GB, and real dSprites, 2.9 GB) or float32
+    ones (real MNIST at 32x32, 246 MB); one larger than the card's free
+    memory raises.  A window then carries only its (k, B) int32 row
+    indices, plus the (k, B) flip masks, copied in once from pinned host
+    memory, and the batches are gathered on the card.  A larger dataset
+    stays on the host: each window carries its raw (k, B, H, W[, C])
+    rows (uint8, which the graph flips and normalizes,
+    ``normalize_prepare(gather=False)``; float32 images as they are),
+    plus the flip masks, gathered on a :class:`~eadgan_tpu_torch.data.
+    loader.Prefetcher` thread into pinned memory and copied to the card on
+    a stream of its own while the previous windows run.  The capture of
+    the graph holds that thread's CUDA calls
+    (:attr:`~eadgan_tpu_torch.data.loader.PinnedStager.lock`).
 
     Window w + 1 is enqueued before window w's (k, M) metrics, copied to
     pinned host memory behind it, are waited for and logged one record
     per step, so the host never waits for the window it has just
     enqueued.  ``on_batch`` then runs at event window ends with the
     window's last step: its index, the state, the metrics and that
-    step's batch, made on the device.
+    step's batch, made on the device from the window's last row by the
+    steps' own prepare.
 
     With ``chain_periods`` declared (and ``EADGAN_SYNC_EVENTS`` not
     ``1``) an event runs on an :class:`~eadgan_tpu_torch.train.chain.
@@ -443,44 +520,79 @@ def _run_epochs_chained(
 
     ``EADGAN_CHAIN_TRACE=<path>`` appends one JSONL record per window of
     host times in seconds: ``iter`` (the window's indices and masks made
-    and copied), ``disp`` (its steps enqueued), ``drain`` (the previous
-    window's metrics waited for and logged), ``cb`` (``on_batch``).
-    Their sum is the time between two window ends.
+    and copied, or its raw rows waited for), ``disp`` (its steps
+    enqueued), ``drain`` (the previous window's metrics waited for and
+    logged), ``cb`` (``on_batch``).  Their sum is the time between two
+    window ends.
 
     A data-parallel rank gathers its ``rows`` of each step's batch: its
     columns of the window's (k, B) indices and flip masks, drawn for the
-    whole batch; the dataset stays whole on every rank's card.
-    ``on_batch`` None: no side effects and no snapshots (a rank other
-    than 0), with the same windows, so every rank polls ``stop_event`` at
-    the same window ends.
+    whole batch, or of its raw rows; a resident dataset stays whole on
+    every rank's card.  ``on_batch`` None: no side effects and no
+    snapshots (a rank other than 0), with the same windows, so every rank
+    polls ``stop_event`` at the same window ends.
     """
-    host_rng = np.random.default_rng(seed)
-    flip_rng = np.random.default_rng([seed, _FLIP_STREAM])
     n_rows = data.shape[0]
     n_batches = n_rows // batch_size
     start_step = state.step
     total = n_epochs * n_batches
     stop = min(total, start_step + max_steps) if max_steps else total
     on_card = device.type == "cuda"
+    add_channel = data.ndim == 3
+    schedule = _schedule(n_rows, batch_size, n_epochs, seed, start_step, stop, chain,
+                         chain_periods, random_flip, rows)
 
-    if on_card:
-        free, _ = torch.cuda.mem_get_info(device)
-        if data.nbytes > free:
-            raise RuntimeError(
-                f"the {data.nbytes / 2**30:.2f} GiB {data.dtype} dataset does not fit in the "
-                f"card's {free / 2**30:.2f} GiB of free memory, where the chained engine keeps it "
-                "(--chain 1 runs the per-step path, which copies one batch at a time)"
-            )
-    prepare = normalize_prepare(scale, shift, flip=random_flip, add_channel=data.ndim == 3)
-    consts = (torch.from_numpy(data).to(device),)
+    stager = None
+    if data.nbytes <= int(os.environ.get("EADGAN_DEVICE_DATA_MAX", _DEVICE_DATA_MAX)):
+        if on_card:
+            free, _ = torch.cuda.mem_get_info(device)
+            if data.nbytes > free:
+                raise RuntimeError(
+                    f"the {data.nbytes / 2**30:.2f} GiB {data.dtype} dataset does not fit in the "
+                    f"card's {free / 2**30:.2f} GiB of free memory, where the chained engine keeps "
+                    "it (set EADGAN_DEVICE_DATA_MAX below its size to stream it in raw windows)"
+                )
+        prepare = normalize_prepare(scale, shift, flip=random_flip, add_channel=add_channel)
+        consts = (torch.from_numpy(data).to(device),)
+
+        def to_device(array):
+            t = torch.from_numpy(np.ascontiguousarray(array))
+            return t.pin_memory().to(device, non_blocking=True) if on_card else t
+
+        def place(item):
+            epoch, ws, k, idx, mask = item
+            window = [to_device(idx.astype(np.int32))]
+            if random_flip:
+                window.append(to_device(mask))
+            return epoch, ws, k, Staged(tuple(window))
+
+        windows = map(place, schedule)
+    else:
+        prepare = None
+        if data.dtype == np.uint8:
+            prepare = normalize_prepare(scale, shift, flip=random_flip, add_channel=add_channel,
+                                        gather=False)
+        consts = ()
+        stager = PinnedStager(device, slots=_PREFETCH_DEPTH + 2)
+
+        def place(item):
+            epoch, ws, k, idx, mask = item
+            # the indices are a permutation's: in range, so no bounds pass
+            specs = [(idx.shape + data.shape[1:], data.dtype,
+                      lambda out: np.take(data, idx, axis=0, out=out, mode="clip"))]
+            if random_flip:
+                specs.append((mask.shape, np.bool_, lambda out: np.copyto(out, mask)))
+            return epoch, ws, k, stager.stage(specs)
+
+        windows = Prefetcher(schedule, place=place, depth=_PREFETCH_DEPTH)
+
+    def batch_of(rows_):
+        return prepare(consts, *rows_)[0] if prepare is not None else rows_[0]
+
     rng = getattr(state, "rng", None)
     chained = make_chained_step(
         step_fn, prepare, pack_keys="auto", generators=(rng,) if on_card and rng is not None else ()
     )
-
-    def to_device(array):
-        t = torch.from_numpy(np.ascontiguousarray(array))
-        return t.pin_memory().to(device, non_blocking=True) if on_card else t
 
     trace_path = os.environ.get("EADGAN_CHAIN_TRACE", "")
     trace = open(trace_path, "a") if trace_path else None
@@ -501,11 +613,11 @@ def _run_epochs_chained(
             ready.synchronize()
         if logger is not None:
             keys = chained.resolved_pack_keys
-            rows = host.numpy()
+            values = host.numpy()
             shown = [keys.index(m) for m in metric_keys] if metric_keys else range(len(keys))
             for i in range(pk):
                 logger.log(
-                    ps + i, {keys[j]: rows[i, j] for j in shown}, epoch=pepoch,
+                    ps + i, {keys[j]: values[i, j] for j in shown}, epoch=pepoch,
                     n_epochs=n_epochs, batch=(ps + i) % n_batches, n_batches=n_batches,
                 )
         if grace_end is not None and ps + pk >= grace_end:
@@ -513,79 +625,67 @@ def _run_epochs_chained(
             clear_grace()  # the captured graph ran: the steady timeout governs
         beat(ps + pk)  # the device finished the window
 
-    s = start_step
-    epoch = s // max(n_batches, 1)
     t_prev = time.perf_counter()
-    stopping = False
     try:
-        while epoch < n_epochs and s < stop and not stopping:
-            perm = host_rng.permutation(n_rows)
-            epoch_end = min((epoch + 1) * n_batches, stop)
-            first = s
-            for ws, k in plan_windows(s, epoch_end - s, chain, chain_periods, stop):
-                idx = perm[(ws - first) * batch_size : (ws - first + k) * batch_size]
-                idx = idx.reshape(k, batch_size)
-                window = [to_device(shard_window(idx, rows).astype(np.int32))]
-                if random_flip:
-                    # one draw per batch, in batch order: the per-step stream
-                    window.append(to_device(shard_window(np.stack(
-                        [flip_rng.random(batch_size) < 0.5 for _ in range(k)]
-                    ), rows)))
-                if chained.will_capture(window):
-                    if worker is not None:
-                        worker.flush()
-                    grace()
-                    grace_end = ws + k
-                t0 = time.perf_counter()
+        for epoch, ws, k, staged in windows:
+            window = list(staged.get())
+            capturing = chained.will_capture(window)
+            if capturing:
+                if worker is not None:
+                    worker.flush()
+                grace()
+                grace_end = ws + k
+            t0 = time.perf_counter()
+            # no other thread may make CUDA calls while the graph is captured
+            with stager.lock if capturing and stager is not None else contextlib.nullcontext():
                 state, stacked = chained(state, consts, *window)
-                state.step = ws + k
-                if on_card:
-                    host = torch.empty(stacked.shape, pin_memory=True)
-                    host.copy_(stacked, non_blocking=True)
-                    ready = torch.cuda.Event()
-                    ready.record()
+            state.step = ws + k
+            if on_card:
+                host = torch.empty(stacked.shape, pin_memory=True)
+                host.copy_(stacked, non_blocking=True)
+                ready = torch.cuda.Event()
+                ready.record()
+            else:
+                host, ready = stacked, None
+            t1 = time.perf_counter()
+            drain()
+            pending = (ws, k, epoch, host, ready)
+            t2 = time.perf_counter()
+            is_event = any((ws + k - 1) % p == 0 for p in chain_periods if p)
+            if on_batch is not None and (is_event or not chain_periods):
+                last = [w[-1] for w in window]
+                fetch = lambda last=last: batch_of(last)  # noqa: E731
+                batch = fetch() if is_event else LazyHostBatch(fetch)
+                if worker is not None and is_event:
+                    snapshot = snapshot_state(state)
+                    done = None
+                    if on_card:
+                        done = torch.cuda.Event()
+                        done.record()
+                    worker.submit(functools.partial(
+                        _run_event, on_batch, ws + k - 1, snapshot, chained.resolved_pack_keys,
+                        host, batch, done, event_stream,
+                    ))
                 else:
-                    host, ready = stacked, None
-                t1 = time.perf_counter()
-                drain()
-                pending = (ws, k, epoch, host, ready)
-                t2 = time.perf_counter()
-                is_event = any((ws + k - 1) % p == 0 for p in chain_periods if p)
-                if on_batch is not None and (is_event or not chain_periods):
-                    last = [w[-1] for w in window]
-                    fetch = lambda last=last: prepare(consts, *last)[0]  # noqa: E731
-                    batch = fetch() if is_event else LazyHostBatch(fetch)
-                    if worker is not None and is_event:
-                        snapshot = snapshot_state(state)
-                        done = None
-                        if on_card:
-                            done = torch.cuda.Event()
-                            done.record()
-                        worker.submit(functools.partial(
-                            _run_event, on_batch, ws + k - 1, snapshot, chained.resolved_pack_keys,
-                            host, batch, done, event_stream,
-                        ))
-                    else:
-                        on_batch(ws + k - 1, state,
-                                 LazyLastMetrics(chained.resolved_pack_keys, stacked), (batch,))
-                        if is_event:
-                            # an inline save holds the loop for seconds, and
-                            # its copies to the host prove the window ran
-                            beat(ws + k)
-                t3 = time.perf_counter()
-                if trace is not None:
-                    trace.write(json.dumps({
-                        "s": ws, "k": k, "iter": t0 - t_prev, "disp": t1 - t0,
-                        "drain": t2 - t1, "cb": t3 - t2,
-                    }) + "\n")
-                t_prev = t3
-                if stop_event is not None and stop_event.is_set():
-                    stopping = True
-                    break
-            s = epoch_end
-            epoch += 1
+                    on_batch(ws + k - 1, state,
+                             LazyLastMetrics(chained.resolved_pack_keys, stacked), (batch,))
+                    if is_event:
+                        # an inline save holds the loop for seconds, and
+                        # its copies to the host prove the window ran
+                        beat(ws + k)
+            t3 = time.perf_counter()
+            if trace is not None:
+                trace.write(json.dumps({
+                    "s": ws, "k": k, "iter": t0 - t_prev, "disp": t1 - t0,
+                    "drain": t2 - t1, "cb": t3 - t2,
+                }) + "\n")
+            t_prev = t3
+            if stop_event is not None and stop_event.is_set():
+                break
         drain()
     finally:
+        if isinstance(windows, Prefetcher):
+            windows.close()
         if trace is not None:
             trace.close()
         if worker is not None:

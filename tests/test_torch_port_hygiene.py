@@ -4,6 +4,7 @@ and no build when a module is imported."""
 import ast
 import os
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -48,6 +49,41 @@ def test_no_forbidden_imports_in_source(path):
             continue
         bad = [n for n in names if _forbidden(n)]
         assert not bad, f"{path}:{node.lineno} imports {bad}"
+
+
+def _source_files():
+    """Every source of the port, Python and C++, and chip_smoke.py."""
+    return _port_files() + sorted(
+        p for ext in ("*.cu", "*.cuh", "*.cpp") for p in (PKG / "csrc").rglob(ext)
+    )
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_sklearn_import_in_source(path):
+    """The card's machine has no scikit-learn: DCI's regressors are the
+    port's own heads (``eval/heads.py``)."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module]
+        else:
+            continue
+        assert not [n for n in names if n == "sklearn" or n.startswith("sklearn.")], (
+            f"{path}:{node.lineno} imports scikit-learn"
+        )
+
+
+@pytest.mark.parametrize("path", _source_files(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_path_under_the_jax_native_dir(path):
+    """The port builds its own batcher (``csrc/batcher.cpp``): no source
+    names a path under the JAX package's ``native/`` directory."""
+    text = path.read_text()
+    assert not re.search(r"(^|[^\w])native/", text), f"{path} names a path under native/"
+    if path.suffix == ".py":
+        literals = [n.value for n in ast.walk(ast.parse(text)) if isinstance(n, ast.Constant)]
+        assert "native" not in literals, f"{path} joins a path through native/"
 
 
 def test_importing_every_module_loads_no_jax():
