@@ -3,7 +3,7 @@
 NVIDIA H100.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It needs one
-CUDA card and the CUDA toolkit (nvcc) and runs nine phases, failing with
+CUDA card and the CUDA toolkit (nvcc) and runs ten phases, failing with
 a non-zero exit on the first that fails:
 
 1. environment: card name and power limit, torch/CUDA versions, TF32
@@ -171,7 +171,28 @@ a non-zero exit on the first that fails:
    resident against ``EADGAN_DEVICE_DATA_MAX=0``; (e) ``cli.score
    --metric DCI --dci_regressor LassoCV``, then ``RandomForest``, on the
    rp run's files.  The new runs' warp launches are the paths
-   ``celeba_per_step``, ``celeba_rawwin`` and ``rp_per_step``.
+   ``celeba_per_step``, ``celeba_rawwin`` and ``rp_per_step``;
+10. the JAX package's files (``interop/flax_msgpack.py``,
+   ``interop/jax_state.py``), in a temporary directory it removes: (a)
+   ``cli.celeba --compute bf16`` at batch 128 for 64 chained steps on
+   4,096 faces with ``--sample_interval 4 --keep_states 1`` (states
+   saved at steps 0 and 60, the newer kept), that state written with
+   ``save_jax_train_state`` and restored as ``--resume`` restores it,
+   every tensor (parameters, buffers with ``u``/``sigma``, both Adam
+   moments and the step counts of every parameter, the step) bit-equal
+   to the state written, then ``cli.celeba --resume <the JAX file>`` for
+   32 more steps, its step counter going on from the file's, its losses
+   finite and the warp launched once a step; (b) the state's models in a
+   JAX-format ``checkpoint_60.tar`` through ``cli.gen_imgs --quant none``
+   and ``--quant int8``, every grid bit-equal to the one from the run's
+   own ``checkpoint_60.tar``, the int8 kernels' launches held exactly;
+   (c) a gray ``cli.rp`` state (``opt_g`` None, ``opt_info`` over G and
+   E) through the same round trip and 32 resumed steps (3 warps a step);
+   (d) the CelebA state's bytes and the seconds of encode, write, read,
+   decode and the whole restore onto the card; (e) the phase within 120
+   s.  The resumed runs' warp launches are the paths ``celeba_jax`` and
+   ``rp_jax``, and the int8 kernels' launches on the JAX-format tar the
+   path ``gen_imgs_jax``.
 
 Its last lines are the ``{"kernels": [...]}`` record, the ``nvidia-smi``
 name/power-limit line, and ``{"ok": true, "device": {...}}``.
@@ -2417,6 +2438,232 @@ def phase_host_feed(torch):
     return launches
 
 
+JAX_FILES_FACES = 4096  # phase 10's CelebA stand-in: 32 batches an epoch at batch 128
+JAX_FILES_STEPS, JAX_FILES_INTERVAL = 64, 4  # the first CelebA run: states saved at steps 0 and 60
+JAX_FILES_SAVED = 60  # the newest state --keep_states 1 keeps (its step counter: 61)
+JAX_FILES_RESUMED = 32  # steps of each resumed run
+JAX_FILES_RP_POS = 8  # gray rp on 3,840 sprites, 30 batches an epoch
+JAX_FILES_BUDGET_S = 120.0
+
+
+def state_tensors(torch, state) -> dict:
+    """Every tensor a train state holds, by name: each model's parameters
+    and buffers (``u``/``sigma``, BatchNorm statistics), each optimizer's
+    moments and step count per parameter, and the step."""
+    import dataclasses
+
+    out = {"step": torch.tensor(int(state.step))}
+    for f in dataclasses.fields(state):
+        value = getattr(state, f.name)
+        if isinstance(value, torch.nn.Module):
+            out.update({f"{f.name}.{k}": v for k, v in value.state_dict().items()})
+        elif isinstance(value, torch.optim.Optimizer):
+            params = [p for g in value.param_groups for p in g["params"]]
+            for i, p in enumerate(params):
+                for k, v in value.state.get(p, {}).items():
+                    out[f"{f.name}[{i}].{k}"] = v
+    return out
+
+
+def compare_states(torch, written, restored) -> dict:
+    """The two states' tensors, bit for bit; BatchNorm's
+    ``num_batches_tracked`` is not in the JAX format (nothing reads it)."""
+    a, b = state_tensors(torch, written), state_tensors(torch, restored)
+    skipped = sorted(k for k in a if k.endswith("num_batches_tracked"))
+    names = [k for k in a if k not in skipped]
+    mismatched = [k for k in names if k not in b or a[k].dtype != b[k].dtype
+                  or a[k].shape != b[k].shape or not torch.equal(a[k], b[k].to(a[k].device))]
+    extra = sorted(set(b) - set(a))
+    check(not mismatched and not extra, f"restored from the JAX format: mismatched "
+          f"{mismatched[:8]} of {len(names)}, extra {extra[:8]}")
+    return {"tensors_compared": len(names), "mismatched": mismatched,
+            "not_in_the_format": len(skipped)}
+
+
+def jax_files_celeba(torch, tmp):
+    """(a), (b) and (d) on CelebA bf16 at batch 128; returns the warp's
+    launches of the resumed run and the int8 kernels' of ``gen_imgs
+    --quant int8`` on the JAX-format ``checkpoint_%d.tar``."""
+    from eadgan_tpu_torch.interop import flax_msgpack, jax_state
+    from eadgan_tpu_torch.ops import quant_cuda, stn_cuda
+    from eadgan_tpu_torch.train import checkpoint as ck
+    from eadgan_tpu_torch.train.config import CelebaConfig
+    from eadgan_tpu_torch.train.gan_celeba import init_celeba_gan_state
+
+    module, stem, saved = "eadgan_tpu_torch.cli.celeba", "celeba_train_state", JAX_FILES_SAVED
+    run1, run2, jdir = (os.path.join(tmp, d) for d in ("celeba", "celeba_resumed", "celeba_jax"))
+
+    def fresh():  # as cli.celeba builds it before --resume
+        return init_celeba_gan_state(CelebaConfig(batch_size=128), device="cuda", seed=0,
+                                     dtype=torch.bfloat16)
+
+    with environ(EADGAN_PLATFORM="cuda", EADGAN_SYNTH_N=str(JAX_FILES_FACES)):
+        common = ["--batch_size", "128", "--compute", "bf16", "--data_dir", tmp]
+        t0 = time.perf_counter()
+        run_module(torch, module, common + [
+            "--max_steps", str(JAX_FILES_STEPS), "--sample_interval", str(JAX_FILES_INTERVAL),
+            "--keep_states", "1", "--out_dir", os.path.join(run1, "images"), "--ckpt_dir", run1,
+            "--jsonl", os.path.join(run1, "m.jsonl")])
+        train_s = time.perf_counter() - t0
+        check(ck.saved_steps(run1, stem) == [saved], f"kept states {ck.saved_steps(run1, stem)}")
+        written = ck.restore_train_state(os.path.join(run1, f"{stem}_{saved}.ckpt"), fresh())
+        check(written.step == saved + 1, f"the kept state's step {written.step}")
+
+        # (a) the JAX format, restored as --resume restores it
+        t0 = time.perf_counter()
+        path = ck.save_jax_train_state(jdir, stem, saved, written)
+        save_s = time.perf_counter() - t0
+        with open(path, "rb") as f:
+            check(flax_msgpack.is_flax_msgpack(f.read(4)), "save_jax_train_state wrote no msgpack map")
+        restored = ck.restore_train_state(path, fresh())
+        compared = compare_states(torch, written, restored)
+        key = jax_state.key_from_generator(written.rng)
+
+        # (d) the pieces, on a second copy
+        timing_file, state2 = os.path.join(jdir, "timing.ckpt"), fresh()
+        torch.cuda.synchronize()
+        ts = [time.perf_counter()]
+        tree = ck.jax_train_state(written)  # encode: off the card, into flax's layout
+        ts.append(time.perf_counter())
+        n_bytes = ck.write_jax_tree(timing_file, tree)  # write: pack, fsync, rename
+        ts.append(time.perf_counter())
+        del tree
+        with open(timing_file, "rb") as f:  # read
+            data = f.read()
+        ts.append(time.perf_counter())
+        payload = jax_state.state_from_jax(flax_msgpack.unpackb(data), state2)  # decode
+        ts.append(time.perf_counter())
+        del data, payload
+        ck.restore_train_state(timing_file, state2)  # what --resume does: all of it, onto the card
+        torch.cuda.synchronize()
+        ts.append(time.perf_counter())
+        os.unlink(timing_file)
+        timing = {"bytes": n_bytes, **{f"{name}_s": b - a for name, a, b in zip(
+            ("encode", "write", "read", "decode", "restore_onto_card"), ts[:-1], ts[1:])}}
+        check(n_bytes == os.path.getsize(path), f"{n_bytes} bytes against the file's")
+
+        stn_cuda.reset_launch_count()  # counts from here read the resumed run only
+        t0 = time.perf_counter()
+        run_module(torch, module, common + [
+            "--resume", path, "--max_steps", str(JAX_FILES_RESUMED), "--sample_interval", "1000",
+            "--out_dir", os.path.join(run2, "images"), "--ckpt_dir", run2,
+            "--jsonl", os.path.join(run2, "m.jsonl")])
+        resume_s = time.perf_counter() - t0
+        warps = stn_cuda.launch_count
+        records = read_records(os.path.join(run2, "m.jsonl"))
+        steps = [r["step"] for r in records]
+        check(steps == list(range(saved + 1, saved + 1 + JAX_FILES_RESUMED)),
+              f"resumed from the JAX file at {steps[:1]}..{steps[-1:]}")
+        check(warps == JAX_FILES_RESUMED, f"warp launches {warps} in {JAX_FILES_RESUMED} steps")
+
+        emit({"jax_files_celeba": {
+            "state": f"{stem}_{saved}.ckpt", "compute": "bf16", "batch_size": 128,
+            "first_run_steps": JAX_FILES_STEPS, "first_run_s": train_s, **compared,
+            "key_written": [int(k) for k in key], "save_jax_train_state_s": save_s,
+            "resumed_steps": [steps[0], steps[-1]], "resumed_run_s": resume_s,
+            "resumed_warp_launches": warps, "last": records[-1]}})
+        emit({"jax_files_timing": timing})
+
+        # (b) that state's models in a JAX-format checkpoint_%d.tar against
+        # the run's own checkpoint_60.tar of the same weights: the same
+        # tensors read from both, and the same grids under deterministic
+        # cuDNN (its transposed convs may otherwise pick atomics)
+        tars = {"jax": os.path.join(jdir, f"checkpoint_{saved}.tar"),
+                "port": os.path.join(run1, f"checkpoint_{saved}.tar")}
+        ck.save_jax_model(tars["jax"], {"discriminator_state_dict": written.d,
+                                        "generator_state_dict": written.g,
+                                        "epoch": saved // (JAX_FILES_FACES // 128),
+                                        "batches_done": saved})
+        read = {kind: ck.load_celeba_checkpoint(tar) for kind, tar in tars.items()}
+        n_tensors = 0
+        for part in ("generator_state_dict", "discriminator_state_dict"):
+            a, b = read["jax"][part], read["port"][part]
+            names = [k for k in b if not k.endswith("num_batches_tracked")]
+            n_tensors += len(names)
+            check(all(torch.equal(a[k], b[k]) for k in names), f"{part}: the two tars differ")
+        grids, int8 = {}, {}
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            for quant in ("none", "int8"):
+                for kind, tar in tars.items():
+                    out = os.path.join(tmp, f"gen_{quant}_{kind}")
+                    quant_cuda.reset_launch_count()  # counts from here read this run only
+                    run_module(torch, "eadgan_tpu_torch.cli.gen_imgs",
+                               ["--checkpoint", tar, "--out_dir", out, "--quant", quant])
+                    if quant == "int8" and kind == "jax":
+                        int8 = dict(quant_cuda.launch_count)
+                    grids[quant, kind] = [open(os.path.join(out, f"varying_c{k}", "0.png"), "rb").read()
+                                          for k in range(1, 9)]
+                check(grids[quant, "jax"] == grids[quant, "port"],
+                      f"gen_imgs --quant {quant}: the JAX-format tar's grids differ from the port's")
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        check(int8 == {"int8_convt": 24, "quantize_int8": 32}, f"int8 launches {int8}")
+    emit({"jax_files_tar": {"tensors_equal": n_tensors, "gen_imgs_bit_equal": ["none", "int8"],
+                            "grids": 8, "int8_launches_jax_tar": int8}})
+    return warps, int8
+
+
+def jax_files_rp(torch, tmp):
+    """(c): a gray rp state (``opt_g`` None, ``opt_info`` over G and E)
+    through the same round trip, resumed by ``cli.rp``; returns the warp's
+    launches of the resumed run (3 a step)."""
+    from eadgan_tpu_torch.ops import stn_cuda
+    from eadgan_tpu_torch.train import checkpoint as ck
+    from eadgan_tpu_torch.train.config import SpritesGanConfig
+    from eadgan_tpu_torch.train.gan_dsprites import init_sprites_gan_state
+    from eadgan_tpu_torch.train.pretrain import pxy_encoder
+
+    module, stem = "eadgan_tpu_torch.cli.rp", "rp_train_state"
+    run1, run2, jdir = (os.path.join(tmp, d) for d in ("rp", "rp_resumed", "rp_jax"))
+
+    def fresh():  # as cli.rp builds it before --resume
+        return init_sprites_gan_state(SpritesGanConfig.for_dataset(False, batch_size=128),
+                                      pxy_encoder(False, seed=1), device="cuda", seed=0)
+
+    with environ(EADGAN_PLATFORM="cuda", EADGAN_SYNTH_POS=str(JAX_FILES_RP_POS)):
+        common = ["--batch_size", "128", "--compute", "f32", "--allow_fresh_pxy", "--data_dir", tmp,
+                  "--sample_interval", "1000"]
+        run_module(torch, module, common + ["--max_steps", "8", "--out_dir", os.path.join(run1, "img"),
+                                            "--ckpt_dir", run1, "--jsonl", os.path.join(run1, "m.jsonl")])
+        check(ck.saved_steps(run1, stem) == [0], f"rp states {ck.saved_steps(run1, stem)}")
+        written = ck.restore_train_state(os.path.join(run1, f"{stem}_0.ckpt"), fresh())
+        path = ck.save_jax_train_state(jdir, stem, 0, written)
+        tree = ck.read_file(path)[1]
+        check(tree["opt_g"] is None and sorted(tree["opt_info"]["0"]["mu"]) == ["e", "g"],
+              "the rp state's optimizers in the JAX layout")
+        del tree
+        compared = compare_states(torch, written, ck.restore_train_state(path, fresh()))
+        stn_cuda.reset_launch_count()  # counts from here read the resumed run only
+        run_module(torch, module, common + [
+            "--resume", path, "--max_steps", str(JAX_FILES_RESUMED),
+            "--out_dir", os.path.join(run2, "img"), "--ckpt_dir", run2,
+            "--jsonl", os.path.join(run2, "m.jsonl")])
+        warps = stn_cuda.launch_count
+        records = read_records(os.path.join(run2, "m.jsonl"), RP_KEYS)
+        steps = [r["step"] for r in records]
+        check(steps == list(range(1, 1 + JAX_FILES_RESUMED)), f"rp resumed at {steps[:1]}..{steps[-1:]}")
+        check(warps == 3 * JAX_FILES_RESUMED, f"rp warp launches {warps} in {JAX_FILES_RESUMED} steps")
+    emit({"jax_files_rp": {"state": f"{stem}_0.ckpt", "bytes": os.path.getsize(path), **compared,
+                           "resumed_steps": [steps[0], steps[-1]], "resumed_warp_launches": warps,
+                           "last": records[-1]}})
+    return warps
+
+
+def phase_jax_files(torch):
+    """(a)-(e) in a temporary directory it removes; returns the warp's
+    launches by path and the int8 kernels' on the JAX-format tar."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="eadgan_jax_files_") as tmp:
+        celeba_warps, int8 = jax_files_celeba(torch, tmp)
+        rp_warps = jax_files_rp(torch, tmp)
+    phase_s = time.perf_counter() - t0
+    emit({"jax_files_phase_s": phase_s})
+    check(phase_s < JAX_FILES_BUDGET_S, f"phase 10 took {phase_s:.1f} s (budget {JAX_FILES_BUDGET_S} s)")
+    return {"celeba_jax": celeba_warps, "rp_jax": rp_warps}, int8
+
+
 def main() -> None:
     import torch
 
@@ -2465,13 +2712,18 @@ def main() -> None:
           "EADGAN_DEVICE_DATA_MAX=0 against the resident dataset) and DCI's LassoCV and "
           "RandomForest without scikit-learn)", flush=True)
     warp_by_path.update(phase_host_feed(torch))
+    print("== phase 10: the JAX package's files (a CelebA bf16 train state and a gray rp one "
+          "written in its format, restored bit for bit and resumed by the CLIs; gen_imgs none|int8 "
+          "on a JAX-format checkpoint_%d.tar against its port-format twin)", flush=True)
+    jax_warps, jax_int8 = phase_jax_files(torch)
+    warp_by_path.update(jax_warps)
     # the warp's paths by the Pallas body the TPU took there: _kernel for
     # C * W > 128 (CelebA, colored dSprites), _kernel_pair otherwise
     paths = {"warp_affine": ("celeba", "pxy_color", "rp_color", "score_color", "celeba_stop",
                              "celeba_dp", "celeba_tp", "celeba_tp_zero", "celeba_per_step",
-                             "celeba_rawwin"),
+                             "celeba_rawwin", "celeba_jax"),
              "warp_affine_pair": ("pxy", "rp", "rp_resumed_bf16", "rp_long", "mnist", "score_gray",
-                                  "rp_gang", "rp_per_step")}
+                                  "rp_gang", "rp_per_step", "rp_jax")}
     check(sorted(p for v in paths.values() for p in v) == sorted(warp_by_path),
           f"warp paths {sorted(warp_by_path)}")
     for k in kernels:
@@ -2481,6 +2733,9 @@ def main() -> None:
             k["launches_by_path"] = by_path
         elif k["name"] in probe_launches:
             k.update(launches=probe_launches[k["name"]])
+        elif k["name"] in jax_int8:  # gen_imgs --quant int8 on the port's tar, then the JAX one
+            k["launches_by_path"] = {"gen_imgs": k["launches"], "gen_imgs_jax": jax_int8[k["name"]]}
+            k["launches"] = sum(k["launches_by_path"].values())
         check(k["launches"] > 0, f"{k['name']} was not launched on its main path")
         if k["name"] == "warp_affine_pair":
             # from the gray rp and MNIST CLIs' runs, each counted from 0 just before it

@@ -264,7 +264,9 @@ def maybe_resume(state, resume: str, ckpt_dir: str, stem: str):
     """Handle ``--resume``: a path restores that train-state file; the
     literal ``auto`` restores the newest *loadable* ``<stem>_%d.ckpt`` in
     ``ckpt_dir`` (no-op when there is none), skipping a damaged newest
-    file with a warning.  Restores into ``state`` in place; returns it."""
+    file with a warning.  A file may be the port's or the JAX package's
+    (``train/checkpoint.py::read_file``).  Restores into ``state`` in
+    place; returns it."""
     if not resume:
         return state
     if resume != "auto":

@@ -2,9 +2,10 @@
 from a trained checkpoint.
 
 ``python -m eadgan_tpu_torch.cli.gen_imgs`` — counterpart of ``python -m
-eadgan_tpu.cli.gen_imgs``.  Reads ``generator_state_dict`` from the
-port's own ``checkpoint_%d.tar`` (``--checkpoint``,
-``checkpoint_600000.tar`` by default; written by ``cli.celeba``) and
+eadgan_tpu.cli.gen_imgs``.  Reads ``generator_state_dict`` from a
+``checkpoint_%d.tar`` (``--checkpoint``, ``checkpoint_600000.tar`` by
+default; written by ``cli.celeba`` in the port's format, or by the JAX
+package's CLI in its own: only its generator's subtree is read) and
 writes 10x10 grids into ``<out_dir>/varying_c1..8/`` on the CUDA card
 (``EADGAN_PLATFORM=cpu`` for the CPU).  ``--quant none`` runs the
 generator's eval-mode forward in float32; ``--quant bf16`` the
@@ -28,6 +29,7 @@ from eadgan_tpu_torch.cli.generate_image import eval_apply
 from eadgan_tpu_torch.models import CelebaGenerator
 from eadgan_tpu_torch.ops.quant import make_celeba_infer
 from eadgan_tpu_torch.sample.figures import celeba_inference_grids
+from eadgan_tpu_torch.train.checkpoint import load_celeba_checkpoint
 from eadgan_tpu_torch.utils import platform_device
 
 
@@ -59,8 +61,8 @@ def main(argv=None) -> None:
     disable_tf32()
     device = platform_device()
 
-    checkpoint = torch.load(opt.checkpoint, map_location="cpu", weights_only=True)
-    state_dict = checkpoint["generator_state_dict"]
+    # either format; of a JAX file only the generator's subtree, as the JAX CLI reads it
+    state_dict = load_celeba_checkpoint(opt.checkpoint, parts=("generator",))["generator_state_dict"]
     if opt.quant in ("bf16", "int8"):
         apply_g = folded_apply(state_dict, device, quant="none" if opt.quant == "bf16" else "int8")
     else:

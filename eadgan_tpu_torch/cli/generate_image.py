@@ -2,9 +2,10 @@
 from a trained generator file.
 
 ``python -m eadgan_tpu_torch.cli.generate_image`` — counterpart of
-``python -m eadgan_tpu.cli.generate_image``.  Loads the port's own
+``python -m eadgan_tpu.cli.generate_image``.  Loads a
 ``generator_%d.pt`` (``--checkpoint``, ``generator_40000.pt`` by
-default; written by ``cli.mnist``), runs the generator in eval mode
+default; written by ``cli.mnist``, or by the JAX package's CLI in its
+format), runs the generator in eval mode
 (BatchNorm on its running statistics, as the reference's
 ``generator.eval()``) on the CUDA card (``EADGAN_PLATFORM=cpu`` for the
 CPU) and writes 10x10 grids into ``<out_dir>/varying_c1..7/``.

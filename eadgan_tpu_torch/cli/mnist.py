@@ -3,7 +3,8 @@
 ``python -m eadgan_tpu_torch.cli.mnist`` — counterpart of ``python -m
 eadgan_tpu.cli.mnist``.  Loads the frozen affine approximator from
 ``--approximator`` (default ``<ckpt_dir>/rpqmnxy_approximator.pt``, the
-file ``cli.approximate_rpqmnxy`` writes) and exits without it unless
+file ``cli.approximate_rpqmnxy`` writes, or the JAX package's in its
+format) and exits without it unless
 ``--allow_fresh_approximator``.  Reads the MNIST idx archives from
 ``<data_dir>/data/mnist`` (the synthetic stand-in when they are absent:
 the port never downloads), trains the LSGAN step on the CUDA card

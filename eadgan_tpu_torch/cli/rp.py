@@ -5,7 +5,8 @@ eadgan_tpu.cli.rp``; ``cli.rp_color`` is the colored variant.  Loads the
 frozen stage-1 aligner from ``--encoder_pxy`` (default
 ``<ckpt_dir>/encoder_pxy_50000.pt``, colored
 ``encoder_pxy_color_50000.pt``, files written by ``cli.pxy`` /
-``cli.pxy_color``) and exits without it unless ``--allow_fresh_pxy``.
+``cli.pxy_color``, or by the JAX package's in its format) and exits
+without it unless ``--allow_fresh_pxy``.
 Trains the three-phase rp step on the CUDA card (``EADGAN_PLATFORM=cpu``
 for the CPU), writes original/trans/varying_c* grids every
 ``2 * sample_interval`` steps and, every ``500 * sample_interval``

@@ -9,11 +9,12 @@ eadgan_tpu.cli.score``, with its flags and defaults:
     python -m eadgan_tpu_torch.cli.score --metric all --json_out scores.json
 
 Loads the frozen stage-1 aligner and the trained category/continuous
-encoder, the port's own model files under the reference names
+encoder, model files under the reference names
 (``encoder_pxy_50000.pt`` / ``encoder_pxy_color_50000.pt`` +
 ``encoder_500000.pt``, written by ``cli.pxy`` / ``cli.pxy_color`` and
-``cli.rp`` / ``cli.rp_color``; a reference-trained file goes through
-``cli.import_torch`` first), and exits without them unless
+``cli.rp`` / ``cli.rp_color``, or by the JAX package's CLIs in their
+format; a reference-trained file goes through ``cli.import_torch``
+first), and exits without them unless
 ``--allow_fresh``.  The encoders and the warp run on the CUDA card
 (``EADGAN_PLATFORM=cpu`` for the CPU); the metric heads run on the host
 in numpy/scipy (``eval/heads.py``), so no metric needs scikit-learn;

@@ -1,6 +1,7 @@
 """Weight interop: the reference's PyTorch checkpoints in both directions
-(``torch_import``, ``torch_export``), and the JAX package's flax
-variables into the port (``from_jax``, used by the tests)."""
+(``torch_import``, ``torch_export``), and the JAX package's files both
+ways: its flax variables (``from_jax``, ``to_jax``), train states
+(``jax_state``) and msgpack format (``flax_msgpack``)."""
 
 from eadgan_tpu_torch.interop.from_jax import (
     approximator_from_flax,

@@ -1,9 +1,13 @@
 """Carry weights from the JAX package's flax variables into the port.
 
-Each function takes the flax variables of one model as nested dicts of
-numpy arrays, ``{"params": ..., "batch_stats": ...}``, and returns the
-port model's ``state_dict`` (torch tensors).  Layout inverses (as in
-``eadgan_tpu/interop/torch_export.py``, re-implemented here):
+Each ``*_from_flax`` function takes the flax variables of one model as
+nested dicts of arrays, ``{"params": ..., "batch_stats": ...}``, and
+returns the port model's ``state_dict`` (torch tensors);
+``interop/to_jax.py`` holds the inverses.  Both read one table per model
+(a :class:`Layer` per port layer), and every step of a layer's map is a
+permutation, so the two directions invert each other exactly.  The
+layout maps (as in ``eadgan_tpu/interop/torch_export.py``,
+re-implemented here):
 
 * conv kernel: flax (kh, kw, in, out) -> torch (out, in, kh, kw);
 * transposed-conv kernel: flax (kh, kw, in, out) with the taps flipped
@@ -13,7 +17,8 @@ port model's ``state_dict`` (torch tensors).  Layout inverses (as in
   flax flattens NHWC in (H, W, C) order, the port NCHW in (C, H, W)
   order.  Permuting rows leaves the singular values, so ``sigma``, and
   the stored ``u`` (one entry per output) as they were;
-* BatchNorm: scale/bias -> weight/bias, mean/var -> running_mean/var.
+* BatchNorm: scale/bias -> weight/bias, mean/var -> running_mean/var
+  (the port's ``num_batches_tracked``, which nothing reads, is 0).
 
 Spectral-norm layers carry the *raw* kernel plus flax's stored ``u``
 (``(1, out)`` under ``.../Conv_0/kernel/u`` or ``.../Dense_0/kernel/u``)
@@ -23,12 +28,17 @@ from the same ``u``.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 __all__ = [
+    "Layer",
+    "Leaf",
+    "leaves",
+    "from_flax",
+    "model_layers",
     "celeba_generator_from_flax",
     "celeba_discriminator_from_flax",
     "sprites_encoder_pxy_from_flax",
@@ -42,22 +52,42 @@ __all__ = [
 ]
 
 StateDict = Dict[str, torch.Tensor]
+Chw = Tuple[int, int, int]
 _SPRITES_FLAT = (64, 4, 4)  # (C, H, W) of the dSprites trunks' last map
+
+
+class Layer(NamedTuple):
+    """One port layer: its ``state_dict`` prefix, its flax module, its
+    kind (``conv``, ``convT``, ``dense``, ``sn_conv``, ``sn_dense``,
+    ``bn``) and, for a dense layer after a flatten, the (C, H, W) of the
+    flattened map."""
+
+    key: str
+    module: str
+    kind: str
+    flatten: Optional[Chw] = None
+
+
+class Leaf(NamedTuple):
+    """One array: its flax path (``("params", module, ...)``), its port
+    key, the map flax -> port and its inverse, and whether it is a
+    parameter (an Adam moment has the parameter's layout)."""
+
+    path: Tuple[str, ...]
+    key: str
+    to_port: Callable[[np.ndarray], np.ndarray]
+    to_flax: Callable[[np.ndarray], np.ndarray]
+    param: bool
 
 
 def _t(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x, dtype=np.float32, order="C"))  # a writable copy
 
 
-def conv_kernel(k) -> torch.Tensor:
-    """flax (kh, kw, in, out) -> torch Conv2d (out, in, kh, kw)."""
-    return _t(np.transpose(np.asarray(k), (3, 2, 0, 1)))
-
-
 def conv_transpose_kernel(k) -> torch.Tensor:
     """flax (kh, kw, in, out), taps flipped -> torch ConvTranspose2d
     (in, out, kh, kw)."""
-    return _t(np.transpose(np.asarray(k)[::-1, ::-1], (2, 3, 0, 1)))
+    return _t(_convt_to_port(np.asarray(k)))
 
 
 def nchw_rows(c: int, h: int, w: int) -> np.ndarray:
@@ -67,165 +97,270 @@ def nchw_rows(c: int, h: int, w: int) -> np.ndarray:
     return (hi * w * c + wi * c + ci).reshape(-1)
 
 
-def dense_kernel(k, flatten_chw: Optional[Tuple[int, int, int]] = None) -> torch.Tensor:
-    """flax (in, out) -> torch Linear (out, in); with ``flatten_chw`` the
-    input rows are taken in the port's (C, H, W) flatten order."""
-    k = np.asarray(k)
-    if flatten_chw is not None:
-        k = k[nchw_rows(*flatten_chw)]
-    return _t(k.T)
+def _convt_to_port(k: np.ndarray) -> np.ndarray:
+    return np.transpose(k[::-1, ::-1], (2, 3, 0, 1))
 
 
-def _conv(sd: StateDict, key: str, variables, module: str, sn=False, transpose=False) -> None:
-    inner = "ConvTranspose_0" if transpose else "Conv_0"
-    leaf = variables["params"][module][inner]
-    sd[f"{key}.weight"] = (conv_transpose_kernel if transpose else conv_kernel)(leaf["kernel"])
-    sd[f"{key}.bias"] = _t(leaf["bias"])
-    if sn:
-        _sn_state(sd, key, variables, module, inner)
+def _convt_to_flax(w: np.ndarray) -> np.ndarray:
+    return np.transpose(w, (2, 3, 0, 1))[::-1, ::-1]
 
 
-def _dense(sd: StateDict, key: str, variables, module: str, sn=False, flatten_chw=None) -> None:
-    leaf = variables["params"][module]["Dense_0"]
-    sd[f"{key}.weight"] = dense_kernel(leaf["kernel"], flatten_chw)
-    sd[f"{key}.bias"] = _t(leaf["bias"])
-    if sn:
-        _sn_state(sd, key, variables, module, "Dense_0")
+def _dense_to_port(flatten: Optional[Chw]):
+    if flatten is None:
+        return lambda k: k.T
+    rows = nchw_rows(*flatten)
+    return lambda k: k[rows].T
 
 
-def _sn_state(sd: StateDict, key: str, variables, module: str, inner: str) -> None:
-    sn = variables["batch_stats"][module]["SpectralNorm_0"]
-    sd[f"{key}.u"] = _t(sn[f"{inner}/kernel/u"]).reshape(-1)
-    sd[f"{key}.sigma"] = _t(sn[f"{inner}/kernel/sigma"]).reshape(())
+def _dense_to_flax(flatten: Optional[Chw]):
+    if flatten is None:
+        return lambda w: w.T
+    rows = nchw_rows(*flatten)
+
+    def inverse(w):
+        k = np.empty_like(w.T)
+        k[rows] = w.T
+        return k
+
+    return inverse
 
 
-def _batch_norm(sd: StateDict, key: str, variables, module: str) -> None:
-    leaf = variables["params"][module]["BatchNorm_0"]
-    st = variables["batch_stats"][module]["BatchNorm_0"]
-    sd[f"{key}.weight"] = _t(leaf["scale"])
-    sd[f"{key}.bias"] = _t(leaf["bias"])
-    sd[f"{key}.running_mean"] = _t(st["mean"])
-    sd[f"{key}.running_var"] = _t(st["var"])
-    sd[f"{key}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+def _same(x):
+    return x
+
+
+_INNER = {"conv": "Conv_0", "sn_conv": "Conv_0", "convT": "ConvTranspose_0",
+          "dense": "Dense_0", "sn_dense": "Dense_0"}
+
+
+def leaves(layers: List[Layer]) -> List[Leaf]:
+    """Every array of a model, in table order."""
+    out: List[Leaf] = []
+    for layer in layers:
+        key, mod = layer.key, layer.module
+        if layer.kind == "bn":
+            out += [
+                Leaf(("params", mod, "BatchNorm_0", "scale"), f"{key}.weight", _same, _same, True),
+                Leaf(("params", mod, "BatchNorm_0", "bias"), f"{key}.bias", _same, _same, True),
+                Leaf(("batch_stats", mod, "BatchNorm_0", "mean"), f"{key}.running_mean",
+                     _same, _same, False),
+                Leaf(("batch_stats", mod, "BatchNorm_0", "var"), f"{key}.running_var",
+                     _same, _same, False),
+            ]
+            continue
+        inner = _INNER[layer.kind]
+        if layer.kind == "convT":
+            fwd, inv = _convt_to_port, _convt_to_flax
+        elif inner == "Conv_0":
+            fwd, inv = (lambda k: np.transpose(k, (3, 2, 0, 1))), (lambda w: np.transpose(w, (2, 3, 1, 0)))
+        else:
+            fwd, inv = _dense_to_port(layer.flatten), _dense_to_flax(layer.flatten)
+        out += [
+            Leaf(("params", mod, inner, "kernel"), f"{key}.weight", fwd, inv, True),
+            Leaf(("params", mod, inner, "bias"), f"{key}.bias", _same, _same, True),
+        ]
+        if layer.kind.startswith("sn_"):
+            sn = ("batch_stats", mod, "SpectralNorm_0")
+            out += [
+                Leaf(sn + (f"{inner}/kernel/u",), f"{key}.u",
+                     lambda u: u.reshape(-1), lambda u: u.reshape(1, -1), False),
+                Leaf(sn + (f"{inner}/kernel/sigma",), f"{key}.sigma",
+                     lambda s: s.reshape(()), lambda s: s.reshape(()), False),
+            ]
+    return out
+
+
+def lookup(tree, path: Tuple[str, ...]):
+    """``tree[path[0]][path[1]]...``; a missing key raises naming the
+    path."""
+    node = tree
+    for i, k in enumerate(path):
+        if not isinstance(node, dict) or k not in node:
+            raise KeyError(f"{'/'.join(path[: i + 1])}: not in the flax tree")
+        node = node[k]
+    return node
+
+
+def from_flax(layers: List[Layer], variables, params_only: bool = False) -> StateDict:
+    """A model's flax variables -> the port's ``state_dict``.  With
+    ``params_only`` only the ``params`` collection is read (a tree of
+    Adam moments has that layout) and only parameters come back."""
+    sd: StateDict = {}
+    for leaf in leaves(layers):
+        if leaf.param or not params_only:
+            sd[leaf.key] = _t(leaf.to_port(np.asarray(lookup(variables, leaf.path))))
+    for layer in layers:
+        if layer.kind == "bn" and not params_only:
+            sd[f"{layer.key}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+    return sd
+
+
+# --- the tables -------------------------------------------------------------
+
+
+def _trunk(module: str, kind: str) -> List[Layer]:
+    return [Layer(f"conv_block.{seq}", f"{module}_{i}", kind) for i, seq in enumerate((0, 2, 4, 6))]
+
+
+def _mnist_flat(img_size: int) -> Chw:
+    """(C, H, W) of the MNIST trunks' last map."""
+    return (128, img_size // 16, img_size // 16)
+
+
+CELEBA_GENERATOR = [
+    *(Layer(f"conv_blocks.{seq}", f"TorchConvTranspose_{i}", "convT")
+      for i, seq in enumerate((0, 1, 4, 7, 10))),
+    *(Layer(f"conv_blocks.{seq}", f"TorchBatchNorm_{i}", "bn") for i, seq in enumerate((2, 5, 8))),
+]
+CELEBA_DISCRIMINATOR = [
+    *(Layer(f"main.{seq}", f"SNConv_{i}", "sn_conv") for i, seq in enumerate((0, 2, 4, 6))),
+    Layer("main.8", "TorchConv_0", "conv"),
+]
+
+
+# The dSprites tables read ``_SPRITES_FLAT`` when called.
+def sprites_encoder_pxy_layers() -> List[Layer]:
+    return [*_trunk("TorchConv", "conv"), Layer("fc1", "TorchDense_0", "dense", _SPRITES_FLAT)]
+
+
+def sprites_generator_layers() -> List[Layer]:
+    # its fc output is viewed NCHW on both sides: no permutation
+    return [
+        Layer("fc1.0", "TorchDense_0", "dense"),
+        Layer("fc2.0", "TorchDense_1", "dense"),
+        *(Layer(f"conv_block.{seq}", f"TorchConvTranspose_{i}", "convT")
+          for i, seq in enumerate((0, 3, 6, 9))),
+        *(Layer(f"conv_block.{seq}", f"TorchBatchNorm_{i}", "bn")
+          for i, seq in enumerate((1, 4, 7))),
+    ]
+
+
+def sprites_discriminator_layers() -> List[Layer]:
+    return [
+        *_trunk("SNConv", "sn_conv"),
+        Layer("fc1.0", "SNDense_0", "sn_dense", _SPRITES_FLAT),
+        Layer("fc2", "TorchDense_0", "dense"),
+    ]
+
+
+def sprites_encoder_layers() -> List[Layer]:
+    return [
+        *_trunk("SNConv", "sn_conv"),
+        Layer("fc1.0", "SNDense_0", "sn_dense", _SPRITES_FLAT),
+        Layer("fc2.0", "SNDense_1", "sn_dense"),
+        Layer("cat_layer.0", "SNDense_2", "sn_dense"),
+        Layer("cont_layer.0", "SNDense_3", "sn_dense"),
+    ]
+
+
+MNIST_GENERATOR = [  # its fc output is viewed NCHW on both sides: no permutation
+    Layer("l1.0", "TorchDense_0", "dense"),
+    Layer("conv_blocks.0", "TorchBatchNorm_0", "bn"),
+    Layer("conv_blocks.2", "TorchConv_0", "conv"),
+    Layer("conv_blocks.3", "TorchBatchNorm_1", "bn"),
+    Layer("conv_blocks.6", "TorchConv_1", "conv"),
+    Layer("conv_blocks.7", "TorchBatchNorm_2", "bn"),
+    Layer("conv_blocks.9", "TorchConv_2", "conv"),
+]
+APPROXIMATOR = [Layer(f"fc_block.{seq}", f"TorchDense_{i}", "dense")
+                for i, seq in enumerate((0, 2, 4, 6, 8))]
+
+
+def mnist_discriminator_layers(img_size: int = 32) -> List[Layer]:
+    return [
+        *(Layer(f"conv_blocks.{seq}", f"SNConv_{i}", "sn_conv") for i, seq in enumerate((0, 2, 4, 6))),
+        Layer("adv_layer.0", "SNDense_0", "sn_dense", _mnist_flat(img_size)),
+    ]
+
+
+def mnist_encoder_layers(img_size: int = 32) -> List[Layer]:
+    return [
+        *(Layer(f"conv_blocks.{seq}", f"SNConv_{i}", "sn_conv") for i, seq in enumerate((0, 2, 5, 8))),
+        *(Layer(f"conv_blocks.{seq}", f"TorchBatchNorm_{i}", "bn") for i, seq in enumerate((4, 7, 10))),
+        *(Layer(f"{head}.0", f"SNDense_{i}", "sn_dense", _mnist_flat(img_size))
+          for i, head in enumerate(("aux_layer", "latent_layer", "noise_layer"))),
+    ]
+
+
+def model_layers(model: torch.nn.Module) -> List[Layer]:
+    """The table of a port model (one of the five families' ten classes)."""
+    from eadgan_tpu_torch import models
+
+    if isinstance(model, (models.MnistDiscriminator, models.MnistEncoder)):
+        dense = model.adv_layer[0] if isinstance(model, models.MnistDiscriminator) else model.aux_layer[0]
+        img_size = 16 * int(round((dense.in_features // 128) ** 0.5))
+        build = (mnist_discriminator_layers if isinstance(model, models.MnistDiscriminator)
+                 else mnist_encoder_layers)
+        return build(img_size)
+    for cls, layers in (
+        (models.CelebaGenerator, CELEBA_GENERATOR),
+        (models.CelebaDiscriminator, CELEBA_DISCRIMINATOR),
+        (models.SpritesEncoderPxy, sprites_encoder_pxy_layers()),
+        (models.SpritesGenerator, sprites_generator_layers()),
+        (models.SpritesDiscriminator, sprites_discriminator_layers()),
+        (models.SpritesEncoder, sprites_encoder_layers()),
+        (models.MnistGenerator, MNIST_GENERATOR),
+        (models.AffineApproximator, APPROXIMATOR),
+    ):
+        if isinstance(model, cls):
+            return layers
+    raise TypeError(f"{type(model).__name__} has no counterpart in the JAX package")
 
 
 def celeba_generator_from_flax(variables) -> StateDict:
     """``eadgan_tpu.models.CelebaGenerator`` variables -> the port's
     ``CelebaGenerator`` state_dict."""
-    sd: StateDict = {}
-    for i, seq in enumerate((0, 1, 4, 7, 10)):
-        _conv(sd, f"conv_blocks.{seq}", variables, f"TorchConvTranspose_{i}", transpose=True)
-    for i, seq in enumerate((2, 5, 8)):
-        _batch_norm(sd, f"conv_blocks.{seq}", variables, f"TorchBatchNorm_{i}")
-    return sd
+    return from_flax(CELEBA_GENERATOR, variables)
 
 
 def celeba_discriminator_from_flax(variables) -> StateDict:
     """``eadgan_tpu.models.CelebaDiscriminator`` variables -> the port's
     ``CelebaDiscriminator`` state_dict."""
-    sd: StateDict = {}
-    for i, seq in enumerate((0, 2, 4, 6)):
-        _conv(sd, f"main.{seq}", variables, f"SNConv_{i}", sn=True)
-    _conv(sd, "main.8", variables, "TorchConv_0")
-    return sd
-
-
-def _sprites_trunk(sd: StateDict, variables, module: str, sn: bool) -> None:
-    for i, seq in enumerate((0, 2, 4, 6)):
-        _conv(sd, f"conv_block.{seq}", variables, f"{module}_{i}", sn=sn)
+    return from_flax(CELEBA_DISCRIMINATOR, variables)
 
 
 def sprites_encoder_pxy_from_flax(variables) -> StateDict:
     """``eadgan_tpu.models.SpritesEncoderPxy`` -> the port's
     ``SpritesEncoderPxy``."""
-    sd: StateDict = {}
-    _sprites_trunk(sd, variables, "TorchConv", sn=False)
-    _dense(sd, "fc1", variables, "TorchDense_0", flatten_chw=_SPRITES_FLAT)
-    return sd
+    return from_flax(sprites_encoder_pxy_layers(), variables)
 
 
 def sprites_generator_from_flax(variables) -> StateDict:
     """``eadgan_tpu.models.SpritesGenerator`` -> the port's
-    ``SpritesGenerator`` (its fc output is viewed NCHW on both sides: no
-    permutation)."""
-    sd: StateDict = {}
-    _dense(sd, "fc1.0", variables, "TorchDense_0")
-    _dense(sd, "fc2.0", variables, "TorchDense_1")
-    for i, seq in enumerate((0, 3, 6, 9)):
-        _conv(sd, f"conv_block.{seq}", variables, f"TorchConvTranspose_{i}", transpose=True)
-    for i, seq in enumerate((1, 4, 7)):
-        _batch_norm(sd, f"conv_block.{seq}", variables, f"TorchBatchNorm_{i}")
-    return sd
+    ``SpritesGenerator``."""
+    return from_flax(sprites_generator_layers(), variables)
 
 
 def sprites_discriminator_from_flax(variables) -> StateDict:
     """``eadgan_tpu.models.SpritesDiscriminator`` -> the port's
     ``SpritesDiscriminator``."""
-    sd: StateDict = {}
-    _sprites_trunk(sd, variables, "SNConv", sn=True)
-    _dense(sd, "fc1.0", variables, "SNDense_0", sn=True, flatten_chw=_SPRITES_FLAT)
-    _dense(sd, "fc2", variables, "TorchDense_0")
-    return sd
+    return from_flax(sprites_discriminator_layers(), variables)
 
 
 def sprites_encoder_from_flax(variables) -> StateDict:
     """``eadgan_tpu.models.SpritesEncoder`` -> the port's
     ``SpritesEncoder``."""
-    sd: StateDict = {}
-    _sprites_trunk(sd, variables, "SNConv", sn=True)
-    _dense(sd, "fc1.0", variables, "SNDense_0", sn=True, flatten_chw=_SPRITES_FLAT)
-    _dense(sd, "fc2.0", variables, "SNDense_1", sn=True)
-    _dense(sd, "cat_layer.0", variables, "SNDense_2", sn=True)
-    _dense(sd, "cont_layer.0", variables, "SNDense_3", sn=True)
-    return sd
-
-
-def _mnist_flat(img_size: int) -> Tuple[int, int, int]:
-    """(C, H, W) of the MNIST trunks' last map."""
-    return (128, img_size // 16, img_size // 16)
+    return from_flax(sprites_encoder_layers(), variables)
 
 
 def mnist_generator_from_flax(variables) -> StateDict:
     """``eadgan_tpu.models.MnistGenerator`` -> the port's
-    ``MnistGenerator`` (its fc output is viewed NCHW on both sides: no
-    permutation)."""
-    sd: StateDict = {}
-    _dense(sd, "l1.0", variables, "TorchDense_0")
-    _batch_norm(sd, "conv_blocks.0", variables, "TorchBatchNorm_0")
-    for i, (conv, bn) in enumerate(((2, 3), (6, 7))):
-        _conv(sd, f"conv_blocks.{conv}", variables, f"TorchConv_{i}")
-        _batch_norm(sd, f"conv_blocks.{bn}", variables, f"TorchBatchNorm_{i + 1}")
-    _conv(sd, "conv_blocks.9", variables, "TorchConv_2")
-    return sd
+    ``MnistGenerator``."""
+    return from_flax(MNIST_GENERATOR, variables)
 
 
 def mnist_discriminator_from_flax(variables, img_size: int = 32) -> StateDict:
     """``eadgan_tpu.models.MnistDiscriminator`` -> the port's
     ``MnistDiscriminator``."""
-    sd: StateDict = {}
-    for i, seq in enumerate((0, 2, 4, 6)):
-        _conv(sd, f"conv_blocks.{seq}", variables, f"SNConv_{i}", sn=True)
-    _dense(sd, "adv_layer.0", variables, "SNDense_0", sn=True, flatten_chw=_mnist_flat(img_size))
-    return sd
+    return from_flax(mnist_discriminator_layers(img_size), variables)
 
 
 def mnist_encoder_from_flax(variables, img_size: int = 32) -> StateDict:
     """``eadgan_tpu.models.MnistEncoder`` -> the port's ``MnistEncoder``."""
-    sd: StateDict = {}
-    for i, seq in enumerate((0, 2, 5, 8)):
-        _conv(sd, f"conv_blocks.{seq}", variables, f"SNConv_{i}", sn=True)
-    for i, seq in enumerate((4, 7, 10)):
-        _batch_norm(sd, f"conv_blocks.{seq}", variables, f"TorchBatchNorm_{i}")
-    flat = _mnist_flat(img_size)
-    for i, head in enumerate(("aux_layer", "latent_layer", "noise_layer")):
-        _dense(sd, f"{head}.0", variables, f"SNDense_{i}", sn=True, flatten_chw=flat)
-    return sd
+    return from_flax(mnist_encoder_layers(img_size), variables)
 
 
 def approximator_from_flax(variables) -> StateDict:
     """``eadgan_tpu.models.AffineApproximator`` -> the port's
     ``AffineApproximator``."""
-    sd: StateDict = {}
-    for i, seq in enumerate((0, 2, 4, 6, 8)):
-        _dense(sd, f"fc_block.{seq}", variables, f"TorchDense_{i}")
-    return sd
+    return from_flax(APPROXIMATOR, variables)

@@ -1,7 +1,12 @@
 """Checkpoints: the reference-contract model files and the train state.
 
-PyTorch counterpart of ``eadgan_tpu/train/checkpoint.py``, in the port's
-own ``torch.save`` format.  Two kinds of file:
+PyTorch counterpart of ``eadgan_tpu/train/checkpoint.py``.  The port
+writes its own ``torch.save`` format; it reads that and the JAX
+package's flax msgpack files under the same names, told apart by
+content (:func:`read_file`: a zip header is the port's, a msgpack map
+the JAX package's, ``interop/flax_msgpack.py`` and ``jax_state.py``).
+:func:`save_jax_model` and :func:`save_jax_train_state` write the JAX
+package's format (no CLI flag does).  Two kinds of file:
 
 * **model files** under the reference's names: the CelebA trainer's
   ``checkpoint_%d.tar`` (both models plus epoch/batches_done), and one
@@ -23,7 +28,7 @@ restore, :func:`restore_latest` skips a newest file that does not load
 and falls back to the next.  ``EADGAN_FAULT_KILL_SAVE_STEP`` is the
 drill of that recovery (:func:`_maybe_fault_kill_mid_write`).  In a
 multi-process gang :func:`save_train_state_sync` is the collective save.
-Reading the JAX package's files is not done here.
+Every reader takes a path or a binary file object.
 """
 
 from __future__ import annotations
@@ -38,6 +43,8 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 from torch import nn
 
+from eadgan_tpu_torch.interop import flax_msgpack
+from eadgan_tpu_torch.interop.jax_state import model_from_jax, model_to_jax, state_from_jax, state_to_jax
 from eadgan_tpu_torch.parallel.mesh import (
     gather_optimizer_state,
     gathered_state_dict,
@@ -47,12 +54,19 @@ from eadgan_tpu_torch.parallel.mesh import (
 
 __all__ = [
     "save_checkpoint",
+    "read_file",
+    "load_model_file",
+    "load_celeba_checkpoint",
     "save_model",
     "restore_model",
+    "save_jax_model",
+    "save_jax_train_state",
+    "write_jax_tree",
     "cpu_state_dict",
     "save_train_state",
     "restore_train_state",
     "train_state_payload",
+    "jax_train_state",
     "restore_latest",
     "saved_steps",
     "latest_step",
@@ -103,13 +117,20 @@ def _maybe_fault_kill_mid_write(path: str, obj: Any) -> None:
 def save_checkpoint(path: str, obj: Any) -> None:
     """``torch.save(obj)`` to ``path`` atomically, then the directory
     fsynced (where the file system allows it)."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    _maybe_fault_kill_mid_write(path, obj)
+    _atomic_write(path, lambda f: torch.save(obj, f))
+
+
+def _atomic_write(path: str, write) -> None:
+    """``write(f)`` into a temporary file beside ``path``, fsynced, renamed
+    over ``path``; then the directory fsynced."""
     directory = os.path.dirname(path) or "."
     os.makedirs(directory, exist_ok=True)
-    _maybe_fault_kill_mid_write(path, obj)
     tmp = f"{path}.tmp.{os.getpid()}"
     try:
         with open(tmp, "wb") as f:
-            torch.save(obj, f)
+            write(f)
             f.flush()
             os.fsync(f.fileno())
         os.replace(tmp, path)
@@ -137,16 +158,84 @@ def _cpu(obj):
     return obj
 
 
+def read_file(source) -> Tuple[str, Any]:
+    """A checkpoint file (a path or a binary file object) as
+    ``("flax", tree)`` when it starts with a msgpack map (the JAX
+    package's format, decoded by ``interop/flax_msgpack.py``), else
+    ``("torch", object)`` from ``torch.load`` (the port's zip, starting
+    ``PK\\x03\\x04``).  Damaged files raise."""
+    if isinstance(source, (str, os.PathLike)):
+        with open(source, "rb") as f:
+            return read_file(f)
+    start = source.tell()
+    head = source.read(4)
+    source.seek(start)
+    if not flax_msgpack.is_flax_msgpack(head):
+        return "torch", torch.load(source, map_location="cpu", weights_only=True)
+    if isinstance(source, io.BytesIO):  # decode in place: no copy of the buffer
+        return "flax", flax_msgpack.unpackb(source.getbuffer()[start:])
+    return "flax", flax_msgpack.unpackb(source.read())
+
+
+def load_model_file(source, model: nn.Module) -> Dict[str, torch.Tensor]:
+    """The ``state_dict`` a model file of either format holds for
+    ``model`` (not loaded into it)."""
+    kind, obj = read_file(source)
+    return model_from_jax(obj, model) if kind == "flax" else obj
+
+
+def load_celeba_checkpoint(source, parts=("generator", "discriminator")) -> Dict[str, Any]:
+    """A ``checkpoint_%d.tar`` of either format in the port's layout:
+    ``{"<part>_state_dict": state_dict, "epoch", "batches_done"}``.  Of a
+    JAX file only ``parts`` are read, as the JAX ``gen_imgs`` reads only
+    the generator's subtree."""
+    kind, obj = read_file(source)
+    if kind == "torch":
+        return obj
+    from eadgan_tpu_torch.models import CelebaDiscriminator, CelebaGenerator
+
+    if not isinstance(obj, dict) or "generator_state_dict" not in obj:
+        raise ValueError("not a CelebA checkpoint_%d.tar (no generator_state_dict)")
+    out = {"epoch": int(obj.get("epoch", 0)), "batches_done": int(obj.get("batches_done", 0))}
+    for part in parts:
+        model = (CelebaGenerator if part == "generator" else CelebaDiscriminator)()
+        key = f"{part}_state_dict"
+        out[key] = model_from_jax(obj[key], model, where=f"{key}/")
+    return out
+
+
 def save_model(path: str, model: nn.Module) -> None:
     """Save one model's ``state_dict`` to ``path`` atomically."""
     save_checkpoint(path, cpu_state_dict(model))
 
 
-def restore_model(path: str, model: nn.Module) -> nn.Module:
-    """Load a :func:`save_model` file into ``model`` (strict) in place;
-    returns it."""
-    model.load_state_dict(torch.load(path, map_location="cpu", weights_only=True))
+def restore_model(path, model: nn.Module) -> nn.Module:
+    """Load a model file of either format into ``model`` (strict) in
+    place; returns it."""
+    model.load_state_dict(load_model_file(path, model))
     return model
+
+
+def save_jax_model(path: str, obj) -> int:
+    """Write a model file in the JAX package's format atomically:
+    ``obj`` is a model (its ``{"params", "stats"}``) or a dict whose
+    model values become such trees, others kept (the CelebA
+    ``checkpoint_%d.tar``: both models, ``epoch``, ``batches_done``).
+    Returns the bytes written."""
+    if isinstance(obj, nn.Module):
+        tree = model_to_jax(obj, cpu_state_dict(obj))
+    else:
+        tree = {k: model_to_jax(v, cpu_state_dict(v)) if isinstance(v, nn.Module) else v
+                for k, v in obj.items()}
+    return write_jax_tree(path, tree)
+
+
+def write_jax_tree(path: str, tree) -> int:
+    """Pack a JAX state-dict tree (``interop/flax_msgpack.py``) into
+    ``path`` atomically; returns the bytes written."""
+    sizes = []
+    _atomic_write(path, lambda f: sizes.append(flax_msgpack.pack_into(f, tree)))
+    return sizes[0]
 
 
 def _is_optimizer(value) -> bool:
@@ -228,17 +317,27 @@ def _apply(state, payload: Dict[str, Any]):
     return state
 
 
-def _load(path: str, state) -> Dict[str, Any]:
-    payload = torch.load(path, map_location="cpu", weights_only=True)
+def _load(source, state) -> Dict[str, Any]:
+    kind, payload = read_file(source)
+    if kind == "flax":
+        return state_from_jax(payload, state)
     if not isinstance(payload, dict) or set(payload) != set(_fields(state)):
-        raise ValueError(f"{path} is not a train-state file of this state's fields")
+        raise ValueError(f"{source} is not a train-state file of this state's fields")
     return payload
 
 
-def restore_train_state(path: str, state):
-    """Load the train-state file ``path`` into ``state`` (built by the
-    trainer's init for the same configuration) in place; returns it."""
-    return _apply(state, _load(path, state))
+def restore_train_state(source, state):
+    """Load a train-state file of either format (a path or a binary file
+    object) into ``state`` (built by the trainer's init for the same
+    configuration) in place; returns it."""
+    return _apply(state, _load(source, state))
+
+
+def jax_train_state(state) -> dict:
+    """``state`` as the JAX package's train-state tree
+    (``interop/jax_state.py``); with model shards or ZeRO slices, only
+    inside ``gathering()`` on every rank."""
+    return state_to_jax(state, train_state_payload(state))
 
 
 def saved_steps(directory: str, prefix: str, suffix: str = ".ckpt") -> List[int]:
@@ -318,6 +417,16 @@ def save_train_state(ckpt_dir: str, stem: str, step: int, state, keep: int = 0) 
     ``--keep_states`` flag routes here."""
     path = os.path.join(ckpt_dir, f"{stem}_{step}.ckpt")
     save_checkpoint(path, train_state_payload(state))
+    prune_saved(ckpt_dir, stem, keep, current_step=step)
+    return path
+
+
+def save_jax_train_state(ckpt_dir: str, stem: str, step: int, state, keep: int = 0) -> str:
+    """:func:`save_train_state` in the JAX package's format: the file
+    ``eadgan_tpu.train.checkpoint.save_train_state`` would write for the
+    same state (the key as ``interop/jax_state.py`` states it)."""
+    path = os.path.join(ckpt_dir, f"{stem}_{step}.ckpt")
+    write_jax_tree(path, jax_train_state(state))
     prune_saved(ckpt_dir, stem, keep, current_step=step)
     return path
 

@@ -54,6 +54,15 @@ from eadgan_tpu_torch.train.engine import epoch_batches, run_epochs
 from eadgan_tpu_torch.train.pretrain import init_pxy_state, make_pxy_step
 from eadgan_tpu_torch.train.state import adam
 from eadgan_tpu_torch.utils.profiler import PIPELINES, build_step, first_batch
+from tests.test_torch_port_jax_files import drop_big_files
+
+
+@pytest.fixture(autouse=True)
+def _drop_big_files(tmp_path):
+    """No test keeps a file above 8 MB on disk (a CelebA train state is
+    ~0.52 GB, and pytest keeps its last three runs' directories)."""
+    yield
+    drop_big_files(tmp_path)
 
 
 @pytest.mark.parametrize("seed", range(4))

@@ -1,5 +1,7 @@
-"""The port stands alone: no JAX, no JAX package, no quiet CPU fallback,
-and no build when a module is imported."""
+"""The port stands alone: no JAX, no JAX package, no msgpack (the card's
+machine has none: the port reads and writes flax msgpack with its own
+codec, ``interop/flax_msgpack.py``), no quiet CPU fallback, and no build
+when a module is imported."""
 
 import ast
 import os
@@ -18,7 +20,7 @@ from eadgan_tpu_torch.utils import platform_device
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PKG = ROOT / "eadgan_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "eadgan_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "eadgan_tpu")
 
 
 def _forbidden(name: str) -> bool:

@@ -38,8 +38,17 @@ from eadgan_tpu_torch.ops.quant import fold_celeba_generator_bn, make_celeba_inf
 from eadgan_tpu_torch.sample import figures
 
 from tests.test_torch_port_models_celeba import celeba_flax_variables
+from tests.test_torch_port_jax_files import drop_big_files
 
 B = 4
+
+
+@pytest.fixture(autouse=True)
+def _drop_big_files(tmp_path):
+    """No test keeps a file above 8 MB on disk (a CelebA train state is
+    ~0.52 GB, and pytest keeps its last three runs' directories)."""
+    yield
+    drop_big_files(tmp_path)
 
 
 @pytest.fixture(scope="module")

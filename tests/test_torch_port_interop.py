@@ -42,10 +42,19 @@ from eadgan_tpu_torch.cli.export_torch import main as export_main
 from eadgan_tpu_torch.cli.import_torch import KINDS
 from eadgan_tpu_torch.cli.import_torch import main as import_main
 from eadgan_tpu_torch.interop.torch_export import export_state_dict
+from tests.test_torch_port_jax_files import drop_big_files
 
 TOL_WEIGHTS = 1e-6
 TOL_OUT = 2e-3
 TOL_EQUILIBRIUM = 1e-4
+
+
+@pytest.fixture(autouse=True)
+def _drop_big_files(tmp_path):
+    """No test keeps a file above 8 MB on disk (a CelebA train state is
+    ~0.52 GB, and pytest keeps its last three runs' directories)."""
+    yield
+    drop_big_files(tmp_path)
 
 
 def _g(seed):

@@ -64,8 +64,17 @@ from eadgan_tpu_torch.train.gan_celeba import init_celeba_gan_state, make_celeba
 import tests.test_torch_port_mnist_models as mnist_models
 import tests.test_torch_port_models_dsprites as sprites_models
 from tests.test_torch_port_models_celeba import celeba_flax_variables
+from tests.test_torch_port_jax_files import drop_big_files
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(autouse=True)
+def _drop_big_files(tmp_path):
+    """No test keeps a file above 8 MB on disk (a CelebA train state is
+    ~0.52 GB, and pytest keeps its last three runs' directories)."""
+    yield
+    drop_big_files(tmp_path)
 
 
 @pytest.fixture

@@ -46,6 +46,7 @@ from eadgan_tpu_torch.train.config import CelebaConfig
 from eadgan_tpu_torch.train.gan_celeba import init_celeba_gan_state, make_celeba_gan_step
 
 import tests.test_torch_port_step_celeba as step_celeba
+from tests.test_torch_port_jax_files import drop_big_files
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STEPS = 3
@@ -177,7 +178,8 @@ def grid(tmp_path_factory):
                 p.kill()
     assert [p.returncode for p in procs] == [0] * 4, [o[1][-3000:] for o in outs]
     ranks = [torch.load(work / f"rank{r}.pt", weights_only=False) for r in range(4)]
-    return {"case": case, "jax": jax_losses, "one": one_losses, "ranks": ranks, "work": work}
+    yield {"case": case, "jax": jax_losses, "one": one_losses, "ranks": ranks, "work": work}
+    drop_big_files(work)  # the ranks' files and train states: ~3.2 GB
 
 
 def test_grid_layout(grid):

@@ -53,6 +53,7 @@ from eadgan_tpu_torch.train.checkpoint import restore_train_state, saved_steps, 
 
 import tests.test_torch_port_step_celeba as step_celeba
 import tests.test_torch_port_step_dsprites as step_dsprites
+from tests.test_torch_port_jax_files import drop_big_files
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STEPS = 3
@@ -184,12 +185,13 @@ def two_ranks(tmp_path_factory):
                 p.kill()
     assert [p.returncode for p in procs] == [0, 0], outs
     losses = torch.load(work / "losses.pt", weights_only=False)
-    return {
+    yield {
         "rp": (rp_jax, rp_one, rp_state, rp_in["config"], losses["rp"], work / "rp.ckpt"),
         "celeba": (cel_jax, cel_one, cel_state, cel_in["config"], losses["celeba"],
                    work / "celeba.ckpt"),
         "rp_zero": (losses["rp"], losses["rp_zero"], work / "rp.ckpt", work / "rp_zero.ckpt"),
     }
+    drop_big_files(work)  # the ranks' train states and inputs: ~0.7 GB
 
 
 def _assert_losses(ref, got, rtol0, rtol):

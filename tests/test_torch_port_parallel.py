@@ -47,10 +47,19 @@ from eadgan_tpu_torch.train.config import SpritesGanConfig
 from eadgan_tpu_torch.train.engine import run_epochs
 from eadgan_tpu_torch.train.gan_dsprites import init_sprites_gan_state, make_sprites_gan_step
 from eadgan_tpu_torch.train.pretrain import pxy_encoder
+from tests.test_torch_port_jax_files import drop_big_files
 
 _RANK_ENV = ("EADGAN_MP_NUM_PROCESSES", "EADGAN_MP_PROCESS_ID", "EADGAN_MP_COORDINATOR",
              "JAX_COORDINATOR_ADDRESS", "COORDINATOR_ADDRESS", "MEGASCALE_COORDINATOR_ADDRESS",
              "WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT", "EADGAN_DIST_BACKEND")
+
+
+@pytest.fixture(autouse=True)
+def _drop_big_files(tmp_path):
+    """No test keeps a file above 8 MB on disk (a CelebA train state is
+    ~0.52 GB, and pytest keeps its last three runs' directories)."""
+    yield
+    drop_big_files(tmp_path)
 
 
 @pytest.fixture(autouse=True)

@@ -47,8 +47,17 @@ from eadgan_tpu_torch.train.config import CelebaConfig
 from eadgan_tpu_torch.train.engine import run_epochs
 from eadgan_tpu_torch.train.gan_celeba import init_celeba_gan_state, make_celeba_gan_step
 from eadgan_tpu_torch.train.state import GanTrainState, adam
+from tests.test_torch_port_jax_files import drop_big_files
 
 B = 2
+
+
+@pytest.fixture(autouse=True)
+def _drop_big_files(tmp_path):
+    """No test keeps a file above 8 MB on disk (a CelebA train state is
+    ~0.52 GB, and pytest keeps its last three runs' directories)."""
+    yield
+    drop_big_files(tmp_path)
 
 
 def _tensors(state):

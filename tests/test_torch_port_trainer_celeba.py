@@ -18,6 +18,15 @@ import torch
 from eadgan_tpu.train.engine import run_epochs as jax_run_epochs
 from eadgan_tpu_torch.cli import celeba as cli
 from eadgan_tpu_torch.train.engine import run_epochs
+from tests.test_torch_port_jax_files import drop_big_files
+
+
+@pytest.fixture(autouse=True)
+def _drop_big_files(tmp_path):
+    """No test keeps a file above 8 MB on disk (a CelebA train state is
+    ~0.52 GB, and pytest keeps its last three runs' directories)."""
+    yield
+    drop_big_files(tmp_path)
 
 
 def test_cli_trains_on_cpu(tmp_path, monkeypatch):

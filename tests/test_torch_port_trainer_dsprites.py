@@ -31,8 +31,17 @@ from eadgan_tpu_torch.data import dsprites
 from eadgan_tpu_torch.train.engine import run_epochs
 
 from tests.test_torch_import import TorchSpritesG, TorchSpritesPxy
+from tests.test_torch_port_jax_files import drop_big_files
 
 RP_GRIDS = ["original", "trans"] + [f"varying_c{k}" for k in range(1, 8)]
+
+
+@pytest.fixture(autouse=True)
+def _drop_big_files(tmp_path):
+    """No test keeps a file above 8 MB on disk (a CelebA train state is
+    ~0.52 GB, and pytest keeps its last three runs' directories)."""
+    yield
+    drop_big_files(tmp_path)
 
 
 @pytest.fixture
