@@ -63,7 +63,7 @@ a non-zero exit on the first that fails:
    + 2 for the grid), ``cli.rp --resume auto --compute bf16 --chain 1``
    to the planned total, ``cli.pxy_color`` and ``cli.rp_color`` (10 steps
    each), and a longer chained ``cli.rp`` on ``EADGAN_SYNTH_POS=8`` (30
-   batches an epoch, 90 steps) with ``EADGAN_CHAIN_TRACE``; ``cli.score
+   batches an epoch, 90 steps) with ``EADGAN_TRACE``; ``cli.score
    --metric all`` on the gray rp run's files and on the colored run's, on
    ``EADGAN_SYNTH_POS=32`` (61,440 sprites) at its defaults, the warp
    launched once a Representer batch, no scikit-learn; ``cli.gen_imgs
@@ -200,6 +200,7 @@ name/power-limit line, and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import io
 import json
@@ -803,24 +804,58 @@ def loop_ms(records) -> float:
     return statistics.median(b - a for a, b in zip(ts[2:], ts[3:])) * 1e3
 
 
+def read_trace(trace_path) -> dict:
+    """An ``EADGAN_TRACE`` file: ``{"spans": [...], "counters": {...}}``."""
+    with open(trace_path) as f:
+        return json.load(f)
+
+
+def trace_spans(recorded, name) -> list:
+    """The spans called ``name`` in a read ``EADGAN_TRACE`` file, by start."""
+    return sorted((s for s in recorded["spans"] if s["name"] == name),
+                  key=lambda s: s["start_ns"])
+
+
+def span_s(span) -> float:
+    return (span["end_ns"] - span["start_ns"]) * 1e-9
+
+
 def chained_loop_ms(trace_path) -> dict:
-    """Chained runs, from their ``EADGAN_CHAIN_TRACE`` records (one a
-    window; iter + disp + drain + cb is the host time between two window
-    ends).  A window ends after the previous window's metrics came back,
-    so the time between window ends j - 1 and j holds the device work of
-    window j - 1: the loop step is the time from the end of the second
-    window (the first is the eager step with its grids and saves, the
-    second the capture) to the end of the last, over the steps of the
-    windows from the second to the last but one.  Also the phases' sums
-    over those intervals, over the same steps, in ms."""
-    windows = [json.loads(line) for line in open(trace_path)]
+    """Chained runs, from their ``EADGAN_TRACE`` file's ``engine.*`` spans:
+    one ``engine.window`` a window (with ``s`` and ``k``), tiling the
+    loop (a last one, without ``s``, drains the last window and is left
+    out here).  A window's span ends after the previous window's metrics
+    came back, so the time between window ends j - 1 and j holds the
+    device work of window j - 1: the loop step is the time from the end
+    of the second window (the first is the eager step with its grids and
+    saves, the second the capture) to the end of the last, over the
+    steps of the windows from the second to the last but one.  Also the
+    sums of the windows' child spans (``feed``, ``dispatch``,
+    ``drain.wait``, ``drain.log``, ``event``, ...) over those windows,
+    over the same steps, in ms; and the replayed steps' device split by
+    their stamps (the ``step.*`` counters), in ms a step.  The engine's
+    counters are held to its spans: a window and its steps counted once
+    each, one capture, every step but the eager first one stamped."""
+    recorded = read_trace(trace_path)
+    spans, counters = recorded["spans"], recorded["counters"]
+    windows = [w for w in trace_spans(recorded, "engine.window") if "k" in w]
     check(len(windows) >= 3, f"{trace_path}: fewer than three windows")
-    phases = ("iter", "disp", "drain", "cb")
+    run = sum(w["k"] for w in windows)
+    check(counters.get("engine.windows") == len(windows) and counters.get("engine.steps") == run
+          and counters.get("engine.captures") == 1 and counters.get("step.stamped") == run - 1,
+          f"{trace_path}: counters {counters} for {len(windows)} windows of {run} steps")
     timed, steps = windows[2:], sum(w["k"] for w in windows[1:-1])
+    ids = {w["id"] for w in timed}
+    phases = collections.defaultdict(float)
+    for s in spans:
+        if s["parent"] in ids:
+            phases[s["name"].removeprefix("engine.")] += span_s(s)
     return {
-        "loop_step_ms_host_clock": sum(w[p] for w in timed for p in phases) / steps * 1e3,
+        "loop_step_ms_host_clock": (timed[-1]["end_ns"] - windows[1]["end_ns"]) * 1e-6 / steps,
         "timed_windows": len(timed), "timed_steps": steps,
-        "trace_ms_per_step": {p: sum(w[p] for w in timed) / steps * 1e3 for p in phases},
+        "trace_ms_per_step": {p: t / steps * 1e3 for p, t in sorted(phases.items())},
+        "stamped_ms_per_step": {p: counters[f"step.{p}_ns"] / (run - 1) * 1e-6
+                                for p in ("prepare", "fwd_bwd", "optimizer")},
     }
 
 
@@ -843,12 +878,12 @@ def phase_trainer(torch):
             "--out_dir", os.path.join(tmp, "images"), "--ckpt_dir", tmp, "--keep_states", "1",
         ]
         jsonl = os.path.join(tmp, "metrics.jsonl")
-        trace = os.path.join(tmp, "chain_trace.jsonl")
+        trace = os.path.join(tmp, "chain_trace.json")
         # one sample interval is the whole run: grids, the checkpoint and
         # the train state are written at step 0 only
         stn_cuda.reset_launch_count()  # counts from here read the main path only
         t0 = time.perf_counter()
-        with environ(EADGAN_CHAIN_TRACE=trace):
+        with environ(EADGAN_TRACE=trace):
             run_module(torch, module, common + ["--compute", "f32", "--max_steps", str(total),
                                                 "--sample_interval", str(total), "--jsonl", jsonl])
         wall = time.perf_counter() - t0
@@ -921,10 +956,16 @@ def phase_save_window(torch):
     the sample grids (one warp), ``checkpoint_%d.tar`` and the ~520 MB
     train state (step 0's event, before the capture, where the engine
     waits for the worker anyway, saves nothing).  From each run's
-    ``EADGAN_CHAIN_TRACE``: the host seconds of the two save windows by
-    part, ``cb`` the callback (inline) or the snapshot and submit
-    (worker); and the run's wall, the worker's last save included.  The
-    files of both runs exist when ``run_epochs`` returns."""
+    ``EADGAN_TRACE`` file: the host seconds of the two save windows and
+    of their ``engine.event`` spans, the callback (inline) or the
+    snapshot and submit (worker); the seconds of each grid
+    (``sample.grid``) and file (``checkpoint.save``) wherever they ran,
+    and on the worker of each event, its wait for the snapshot and the
+    queue's ``put``; and the run's wall, the worker's last save
+    included.  The files of both runs exist when ``run_epochs`` returns;
+    the counters hold every file with its bytes, every grid, and on the
+    worker every event, and each worker event holds one wait and one
+    callback."""
     from eadgan_tpu_torch.cli.celeba import warp_batch
     from eadgan_tpu_torch.sample.figures import celeba_training_grids
     from eadgan_tpu_torch.train.checkpoint import (cpu_state_dict, save_checkpoint,
@@ -937,7 +978,7 @@ def phase_save_window(torch):
     for mode in ("inline", "worker"):
         state, step, data, prep = build_step("celeba", 128)
         with tempfile.TemporaryDirectory(prefix="eadgan_save_") as tmp:
-            trace = os.path.join(tmp, "trace.jsonl")
+            trace = os.path.join(tmp, "trace.json")
 
             def on_batch(i, st, metrics, batch, tmp=tmp):
                 if i % SAVE_EVERY or i == 0:
@@ -954,7 +995,7 @@ def phase_save_window(torch):
                 save_train_state(tmp, "celeba_train_state", i, st, keep=0)
 
             with environ(EADGAN_SYNC_EVENTS="1" if mode == "inline" else "0",
-                         EADGAN_CHAIN_TRACE=trace):
+                         EADGAN_TRACE=trace):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 run_epochs(n_epochs=SAVE_STEPS // 8, data=data, batch_size=128, state=state,
@@ -970,13 +1011,46 @@ def phase_save_window(torch):
                       f"{mode}: grid {i}")
             saved = torch.load(os.path.join(tmp, "celeba_train_state_16.ckpt"), weights_only=True)
             check(saved["step"] == 17, f"{mode}: saved step {saved['step']}")
-            windows = [json.loads(line) for line in open(trace)]
-        saves = [w for w in windows if (w["s"] + w["k"] - 1) % SAVE_EVERY == 0 and w["s"] > 0]
+            files = [os.path.join(tmp, f"{stem}_{i}.{ext}") for i in record["saves"]
+                     for stem, ext in (("checkpoint", "tar"), ("celeba_train_state", "ckpt"))]
+            written = sum(os.path.getsize(f) for f in files)
+            recorded = read_trace(trace)
+        windows = trace_spans(recorded, "engine.window")
+        events = {e["parent"]: e for e in trace_spans(recorded, "engine.event")}
+        saves = [w for w in windows
+                 if "k" in w and (w["s"] + w["k"] - 1) % SAVE_EVERY == 0 and w["s"] > 0]
         check(len(saves) == 2, f"{mode}: save windows {saves}")
-        record[mode] = {"wall_s": wall, "save_windows": saves,
-                        "save_cb_s": [w["cb"] for w in saves],
-                        "window_host_s": sum(w[p] for w in windows[1:]
-                                             for p in ("iter", "disp", "drain", "cb"))}
+        counters = recorded["counters"]
+        on_worker = len(events) if mode == "worker" else 0
+        check(counters.get("checkpoint.saves") == len(files)
+              and counters.get("checkpoint.bytes") == written
+              and counters.get("sample.grids") == len(record["saves"])
+              and counters.get("worker.events", 0) == on_worker,
+              f"{mode}: counters {counters}, {len(files)} files of {written} bytes, "
+              f"{len(events)} events")
+        worker_events = trace_spans(recorded, "worker.event")
+        held = collections.defaultdict(list)
+        for s in recorded["spans"]:
+            held[s["parent"]].append(s["name"])
+        check(len(worker_events) == on_worker
+              and all(sorted(held[e["id"]]) == ["worker.callback", "worker.wait"]
+                      for e in worker_events),
+              f"{mode}: worker spans {[(e['id'], held[e['id']]) for e in worker_events]}")
+        submits = trace_spans(recorded, "engine.event.submit")
+        check(len(submits) == on_worker and counters.get("worker.submit_blocked", 0) <= on_worker,
+              f"{mode}: {len(submits)} submits, counters {counters}")
+        record[mode] = {"wall_s": wall,
+                        "save_windows": [{"s": w["s"], "k": w["k"], "host_s": span_s(w)} for w in saves],
+                        "save_cb_s": [span_s(events[w["id"]]) for w in saves],
+                        "window_host_s": sum(span_s(w) for w in windows[1:]),
+                        "grid_s": [span_s(g) for g in trace_spans(recorded, "sample.grid")],
+                        "checkpoint_save_s": [span_s(c) for c in
+                                              trace_spans(recorded, "checkpoint.save")],
+                        "checkpoint_mb": written / 1e6,
+                        "worker_event_s": [span_s(e) for e in worker_events],
+                        "worker_wait_s": [span_s(w) for w in trace_spans(recorded, "worker.wait")],
+                        "submit_s": [span_s(p) for p in submits],
+                        "submit_blocked": counters.get("worker.submit_blocked", 0)}
         # the models and the three Adams' moments, as a save copies them
         record["train_state_mb"] = sum(
             v.numel() * v.element_size()
@@ -1018,10 +1092,10 @@ def phase_mnist_trainers(torch):
         check(os.path.isfile(approx_file), "rpqmnxy_approximator.pt")
 
         jsonl = os.path.join(tmp, "mnist.jsonl")
-        trace = os.path.join(tmp, "mnist_chain_trace.jsonl")
+        trace = os.path.join(tmp, "mnist_chain_trace.json")
         stn_cuda.reset_launch_count()  # counts from here read this run only
         t0 = time.perf_counter()
-        with environ(EADGAN_CHAIN_TRACE=trace):
+        with environ(EADGAN_TRACE=trace):
             run_module(torch, "eadgan_tpu_torch.cli.mnist", [
                 "--batch_size", "128", "--compute", "f32", "--n_epochs", "2",
                 "--max_steps", str(MNIST_STEPS),
@@ -1103,10 +1177,10 @@ def phase_dsprites_trainers(torch):
 
         def run(label, module, steps, per_step, grid, argv, keys, first=0):
             jsonl = os.path.join(tmp, f"{label}.jsonl")
-            trace = os.path.join(tmp, f"{label}_chain_trace.jsonl")
+            trace = os.path.join(tmp, f"{label}_chain_trace.json")
             stn_cuda.reset_launch_count()  # counts from here read this run only
             t0 = time.perf_counter()
-            with environ(EADGAN_CHAIN_TRACE=trace):
+            with environ(EADGAN_TRACE=trace):
                 run_module(torch, module, ["--batch_size", "128", "--data_dir", tmp,
                                            "--out_dir", os.path.join(tmp, label), "--ckpt_dir", tmp,
                                            "--jsonl", jsonl, *argv])
@@ -1833,10 +1907,13 @@ def robust_guard_cost(torch):
     """(d) The replayed CelebA bf16 step at batch 128 through ``run_epochs``
     (``--chain 32``, 8 windows of 32, inline event at each window end),
     without the guard and the watchdog, then with the SIGTERM guard armed
-    and ``watchdog=60``: phase 5's method, CUDA events recorded at the
-    window ends, the median over the windows after the capture's of each
-    window's time over 32, and the loop step by host clock from
-    ``EADGAN_CHAIN_TRACE``."""
+    and ``watchdog=60``, then as the first with the port's tracing on
+    (``EADGAN_TRACE``, the graph captured with its stamps): phase 5's
+    method, CUDA events recorded at the window ends, the median over the
+    windows after the capture's of each window's time over 32, and the
+    loop step by host clock at the window ends, from the end of the
+    second window to the last's over the steps between (as
+    :func:`chained_loop_ms` reads it); traced, also the trace's split."""
     from eadgan_tpu_torch.data.celeba import _synthetic_faces
     from eadgan_tpu_torch.train.engine import run_epochs
     from eadgan_tpu_torch.utils.preempt import PreemptionGuard
@@ -1845,20 +1922,21 @@ def robust_guard_cost(torch):
     faces = _synthetic_faces(n=ROBUST_FACES, size=64, seed=0)
     record = {"guard_cost": "celeba_bf16", "batch_size": ROBUST_BATCH, "chain": CHAIN_WINDOW,
               "windows": ROBUST_COST_WINDOWS}
-    for mode in ("off", "guard_and_watchdog_60"):
-        armed = mode != "off"
+    for mode in ("off", "guard_and_watchdog_60", "off_traced"):
+        armed = mode == "guard_and_watchdog_60"
         state, step, _, prep = build_step("celeba", ROBUST_BATCH, torch.bfloat16)
-        marks = []
+        marks, ends = [], []
 
         def on_batch(i, st, metrics, batch):
             marks.append(torch.cuda.Event(enable_timing=True))
             marks[-1].record()
+            ends.append(time.perf_counter())
 
         guard = PreemptionGuard().install() if armed else None
         with tempfile.TemporaryDirectory(prefix="eadgan_cost_") as tmp:
-            trace = os.path.join(tmp, "trace.jsonl")
+            trace = os.path.join(tmp, "trace.json")
             try:
-                with environ(EADGAN_CHAIN_TRACE=trace):
+                with environ(EADGAN_TRACE=trace if mode == "off_traced" else ""):
                     run_epochs(n_epochs=ROBUST_COST_WINDOWS, data=faces, batch_size=ROBUST_BATCH,
                                state=state, step_fn=step, on_batch=on_batch, device="cuda",
                                max_steps=CHAIN_WINDOW * ROBUST_COST_WINDOWS, chain=CHAIN_WINDOW,
@@ -1869,15 +1947,20 @@ def robust_guard_cost(torch):
                 if guard is not None:
                     guard.uninstall()
             torch.cuda.synchronize()
-            loop = chained_loop_ms(trace)
+            split = chained_loop_ms(trace) if mode == "off_traced" else {}
         check(guard is None or not guard.requested.is_set(), "the guard saw a signal")
         windows = [a.elapsed_time(b) / CHAIN_WINDOW for a, b in zip(marks[1:], marks[2:])]
         record[mode] = {"replayed_ms_cuda_events": statistics.median(windows),
                         "window_ms_range": [min(windows), max(windows)],
-                        "loop_step_ms_host_clock": loop["loop_step_ms_host_clock"]}
+                        "loop_step_ms_host_clock": (ends[-1] - ends[1]) * 1e3
+                        / (CHAIN_WINDOW * (len(ends) - 2)),
+                        **{k: split[k] for k in ("trace_ms_per_step", "stamped_ms_per_step")
+                           if k in split}}
         del state
     record["armed_minus_off_ms"] = (record["guard_and_watchdog_60"]["replayed_ms_cuda_events"]
                                     - record["off"]["replayed_ms_cuda_events"])
+    record["traced_minus_off_ms"] = (record["off_traced"]["replayed_ms_cuda_events"]
+                                     - record["off"]["replayed_ms_cuda_events"])
     emit(record)
     return record
 
@@ -2299,17 +2382,13 @@ def feed_chain_checks(torch):
               f"chain_check {pipeline} with raw windows: {report}")
 
 
-def _trace_records(path):
-    return [json.loads(line) for line in open(path)]
-
-
 def feed_per_step(torch, tmp):
     """(c) The per-step engine on the prefetcher through the CLIs, batch
     128: ``cli.celeba --chain 1 --compute bf16`` for 40 steps (640 faces),
     then ``cli.pxy`` (4 chained steps, for its aligner file) and ``cli.rp
     --chain 1 --compute f32`` for 20 steps on it: loop step ms (host clock
     between log records) and the main thread's median wait for a batch
-    (``EADGAN_CHAIN_TRACE``'s ``wait``), from step 2 on; the warp's
+    (the ``EADGAN_TRACE`` file's ``engine.feed`` spans), from step 2 on; the warp's
     launches held exactly.  Returns the launches by path."""
     from eadgan_tpu_torch.ops import stn_cuda
 
@@ -2317,10 +2396,10 @@ def feed_per_step(torch, tmp):
 
     def run(label, module, argv, keys, steps, warps, **env):
         jsonl = os.path.join(tmp, f"{label}.jsonl")
-        trace = os.path.join(tmp, f"{label}_trace.jsonl")
+        trace = os.path.join(tmp, f"{label}_trace.json")
         stn_cuda.reset_launch_count()  # counts from here read this run only
         t0 = time.perf_counter()
-        with environ(EADGAN_PLATFORM="cuda", EADGAN_CHAIN_TRACE=trace, **env):
+        with environ(EADGAN_PLATFORM="cuda", EADGAN_TRACE=trace, **env):
             run_module(torch, module, ["--batch_size", "128", "--data_dir", tmp, "--ckpt_dir", tmp,
                                        "--out_dir", os.path.join(tmp, label), "--jsonl", jsonl,
                                        *argv])
@@ -2330,7 +2409,10 @@ def feed_per_step(torch, tmp):
         check(stn_cuda.launch_count == warps,
               f"{label}: warp launched {stn_cuda.launch_count} times, expected {warps}")
         launches[label] = stn_cuda.launch_count
-        waits = [r["wait"] for r in _trace_records(trace) if r["s"] >= 2]
+        recorded = read_trace(trace)
+        check(recorded["counters"].get("engine.steps") == steps,
+              f"{label}: counters {recorded['counters']}")
+        waits = [span_s(f) for f in trace_spans(recorded, "engine.feed") if f.get("s", -1) >= 2]
         emit({"per_step_run": label, "module": module, "steps": steps, "wall_s": wall,
               "loop_step_ms_host_clock": loop_ms(records),
               "batch_wait_ms_median": statistics.median(waits) * 1e3,
@@ -2359,7 +2441,7 @@ def feed_raw_windows(torch, tmp):
     """(d) ``cli.celeba --compute bf16`` at its default ``--chain 32`` for 64
     steps on 8,192 faces, resident, then with ``EADGAN_DEVICE_DATA_MAX=0``
     (raw windows gathered on the prefetch thread): the loop step ms from
-    ``EADGAN_CHAIN_TRACE`` and its split, the largest relative difference
+    the ``EADGAN_TRACE`` file and its split, the largest relative difference
     of their losses (cuDNN is left to its defaults here, as in a user's
     run: (b) holds the paths bit for bit), the warp once a step plus the
     step-0 grid's."""
@@ -2370,9 +2452,9 @@ def feed_raw_windows(torch, tmp):
     out, launches, losses = {}, {}, {}
     for label, limit in (("celeba_resident", None), ("celeba_rawwin", "0")):
         jsonl = os.path.join(tmp, f"{label}.jsonl")
-        trace = os.path.join(tmp, f"{label}_trace.jsonl")
+        trace = os.path.join(tmp, f"{label}_trace.json")
         env = {"EADGAN_PLATFORM": "cuda", "EADGAN_SYNTH_N": str(RAWWIN_FACES),
-               "EADGAN_CHAIN_TRACE": trace}
+               "EADGAN_TRACE": trace}
         if limit is not None:
             env["EADGAN_DEVICE_DATA_MAX"] = limit
         stn_cuda.reset_launch_count()  # counts from here read this run only

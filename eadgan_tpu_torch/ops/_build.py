@@ -53,6 +53,7 @@ _SIGNATURES = {
     "eadgan_int8_quantize": (_ptr, _ptr, _ptr, _ptr, _int, _int, _int, _int, _ptr),
     "eadgan_int8_convt_s2": (_ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _int, _int, _int, _int, _int,
                              _int, _ptr),
+    "eadgan_stamp": (_ptr, _int, _ptr),
 }
 _i64 = ctypes.c_int64
 _HOST_SIGNATURES = {

@@ -13,9 +13,12 @@ inputs to NHWC images, so any weights snapshot works.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 
 from eadgan_tpu_torch.sample.grid import save_image
+from eadgan_tpu_torch.utils import trace
 
 __all__ = [
     "mnist_training_grids",
@@ -27,6 +30,19 @@ __all__ = [
 ]
 
 
+def _traced_grid(fn):
+    """A training grid's render and write as a ``sample.grid`` span,
+    counted in ``sample.grids`` (``utils/trace.py``)."""
+
+    @functools.wraps(fn)
+    def grids(*args, **kwargs):
+        trace.count("sample.grids")
+        with trace.span("sample.grid"):
+            return fn(*args, **kwargs)
+
+    return grids
+
+
 def _sweep(code_dim, dims, values):
     """(len(values), code_dim) codes with ``values`` written into the
     given dims; everything else zero."""
@@ -36,6 +52,7 @@ def _sweep(code_dim, dims, values):
     return c
 
 
+@_traced_grid
 def mnist_training_grids(
     apply_g, real_img, scaled_img, out_dir, batches_done, n_row=10,
     latent_dim=62, n_classes=10, code_dim=7,
@@ -83,6 +100,7 @@ def mnist_inference_grids(apply_g, out_dir, batches_done=0, n_row=10):
         )
 
 
+@_traced_grid
 def celeba_training_grids(
     apply_g, real_img, scaled_img, out_dir, batches_done, n_row=10,
     latent_dim=200, n_classes=10, code_dim=8,
@@ -128,6 +146,7 @@ def celeba_inference_grids(apply_g, out_dir, batches_done=0, n_row=10):
         )
 
 
+@_traced_grid
 def sprites_training_grids(
     apply_g, align_img, trans_img, out_dir, batches_done, code_dim=4, n_cols=10
 ):

@@ -28,6 +28,7 @@ asked for the CPU.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import queue
 import threading
@@ -36,7 +37,8 @@ from typing import Callable, Iterator, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from eadgan_tpu_torch.ops import _build, stn_cuda
+from eadgan_tpu_torch.ops import _build, stamp_cuda, stn_cuda
+from eadgan_tpu_torch.utils import trace
 
 __all__ = [
     "ChainedStep",
@@ -77,6 +79,14 @@ class ChainedStep:
     once at capture and never on replay: the caller sets it after each
     window.  The warp kernel's launches recorded by the capture are
     counted after each replay (``stn_cuda.count_replayed``).
+
+    With tracing on at capture (``utils/trace.py``) the graph also holds
+    the step's device phase stamps (:class:`_Stamps`): while tracing is
+    on, after each replay they are copied into row i of a (K, P) int64
+    window buffer, ``window_stamps``, which the caller brings to the host
+    with the metrics and hands to :meth:`count_phases`.  With tracing off
+    at capture the graph holds no stamp; with it off at a call,
+    ``window_stamps`` is None.
     """
 
     def __init__(self, body: Callable, prepare: Optional[Callable] = None,
@@ -89,18 +99,27 @@ class ChainedStep:
         self.graph = None
         self.warmed = False  # the first step ran eagerly
         self.captured_warps = 0  # warp launches one replay runs
+        self.stamps = None  # the graph's phase stamps, when captured with tracing on
+        self.window_stamps = None  # the last call's (K, P) stamps; row 0 zero if eager
         self._static_in = None
         self._static_out = None
 
-    def _step(self, state, consts, rows):
+    def _step(self, state, consts, rows, stamps=None):
+        if stamps is not None:
+            stamps.mark("start")
         batch = self.prepare(consts, *rows) if self.prepare is not None else tuple(rows)
         if not isinstance(batch, tuple):
             batch = (batch,)
-        state, metrics = self.body(state, *batch)
+        if stamps is not None:
+            stamps.mark("prepare")
+        with stamps.around_optimizers() if stamps is not None else contextlib.nullcontext():
+            state, metrics = self.body(state, *batch)
         if not self.resolved_pack_keys:
             keys = sorted(metrics) if self.pack_keys == "auto" else self.pack_keys
             self.resolved_pack_keys.extend(keys)
         packed = torch.stack([metrics[k].to(torch.float32) for k in self.resolved_pack_keys])
+        if stamps is not None:
+            stamps.mark("end")
         return state, packed
 
     def _capture(self, state, consts, windows) -> None:
@@ -114,11 +133,13 @@ class ChainedStep:
         graph = torch.cuda.CUDAGraph()
         for gen in self.generators:
             graph.register_generator_state(gen)
+        stamps = _Stamps(windows[0].device) if trace.enabled() else None
         before = stn_cuda.captured_count
         with torch.cuda.graph(graph):
-            _, self._static_out = self._step(state, consts, self._static_in)
+            _, self._static_out = self._step(state, consts, self._static_in, stamps)
         self.captured_warps = stn_cuda.captured_count - before
         self.graph = graph
+        self.stamps = stamps
 
     def will_capture(self, windows) -> bool:
         """Whether a call with these windows captures the graph: on the
@@ -126,6 +147,12 @@ class ChainedStep:
         step."""
         return bool(windows[0].is_cuda and self.graph is None
                     and (self.warmed or windows[0].shape[0] > 1))
+
+    def runs_eagerly(self, windows) -> bool:
+        """Whether a call with these windows runs the eager first step or
+        captures the graph (the engine's ``engine.capture`` span), rather
+        than only replaying it."""
+        return bool(windows[0].is_cuda and (not self.warmed or self.will_capture(windows)))
 
     def __call__(self, state, consts, *windows):
         k = windows[0].shape[0]
@@ -145,13 +172,81 @@ class ChainedStep:
         out = torch.empty((k, len(self.resolved_pack_keys)), device=windows[0].device)
         if first:
             out[0].copy_(eager)
+        stamped = None
+        if self.stamps is not None and trace.enabled():
+            stamped = torch.empty((k, len(self.stamps.kinds)), dtype=torch.int64,
+                                  device=windows[0].device)
+            if first:
+                stamped[0].zero_()  # the eager step: no stamps
         for i in range(first, k):
             for static, w in zip(self._static_in, windows):
                 static.copy_(w[i])
             self.graph.replay()
             stn_cuda.count_replayed(self.captured_warps)
             out[i].copy_(self._static_out)
+            if stamped is not None:
+                stamped[i].copy_(self.stamps.slots[: len(self.stamps.kinds)])
+        self.window_stamps = stamped
         return state, out
+
+    def count_phases(self, stamps: np.ndarray) -> None:
+        """Add the device nanoseconds of each stamped step in ``stamps``, a
+        window's (K, P) stamps on the host, to the trace's counters by
+        phase: ``step.prepare_ns`` (the batch made), ``step.optimizer_ns``
+        (every ``optimizer.step()``), ``step.fwd_bwd_ns`` (the rest: the
+        forward and backward passes, the losses, the metrics packed); and
+        the steps to ``step.stamped``.  Rows of 0 (an eager step) are
+        skipped."""
+        rows = stamps[stamps[:, 0] != 0]
+        if not len(rows):
+            return
+        kinds = np.array(self.stamps.kinds)
+        total = int((rows[:, -1] - rows[:, 0]).sum())
+        prepare = int((rows[:, 1] - rows[:, 0]).sum())
+        optimizer = int((rows[:, kinds == "opt_post"] - rows[:, kinds == "opt_pre"]).sum())
+        trace.count("step.stamped", len(rows))
+        trace.count("step.prepare_ns", prepare)
+        trace.count("step.optimizer_ns", optimizer)
+        trace.count("step.fwd_bwd_ns", total - prepare - optimizer)
+
+
+class _Stamps:
+    """The device phase stamps captured into a traced step's graph: the
+    card's clock written (``ops/stamp_cuda.py``) into ``slots`` at the
+    step's start, after its prepare, before and after every
+    ``optimizer.step()`` and at its end; ``kinds`` names each slot in
+    order (``start``, ``prepare``, ``opt_pre`` / ``opt_post`` pairs,
+    ``end``)."""
+
+    MAX = 64
+
+    def __init__(self, device):
+        self.slots = torch.zeros(self.MAX, dtype=torch.int64, device=device)
+        self.kinds: list = []
+
+    def mark(self, kind: str) -> None:
+        if len(self.kinds) == self.MAX:
+            raise RuntimeError(f"a step stamps at most {self.MAX} phase boundaries")
+        self._write(len(self.kinds))
+        self.kinds.append(kind)
+
+    def _write(self, index: int) -> None:
+        stamp_cuda.stamp(self.slots, index)
+
+    @contextlib.contextmanager
+    def around_optimizers(self):
+        """Stamp before and after every optimizer step inside, through
+        ``torch.optim``'s global step hooks, registered only here."""
+        from torch.optim.optimizer import (register_optimizer_step_post_hook,
+                                           register_optimizer_step_pre_hook)
+
+        pre = register_optimizer_step_pre_hook(lambda *_: self.mark("opt_pre"))
+        post = register_optimizer_step_post_hook(lambda *_: self.mark("opt_post"))
+        try:
+            yield
+        finally:
+            pre.remove()
+            post.remove()
 
 
 def make_chained_step(body: Callable, prepare: Optional[Callable] = None,
@@ -346,7 +441,8 @@ class EventWorker:
     the state (:func:`snapshot_state`) and submits it here, so the copy,
     the serialization and the PNGs overlap the next windows' device work.
     The queue is bounded (``maxsize``): when events outpace the worker,
-    :meth:`submit` blocks.  An exception in a callback re-raises at the
+    :meth:`submit` blocks (counted as ``worker.submit_blocked``; the
+    spans and counters are ``utils/trace.py``'s).  An exception in a callback re-raises at the
     next :meth:`submit`, :meth:`flush` or :meth:`close`, so a failed
     checkpoint write cannot pass silently."""
 
@@ -362,7 +458,9 @@ class EventWorker:
             try:
                 if fn is None:
                     return
-                fn()
+                trace.count("worker.events")
+                with trace.span("worker.event"):
+                    fn()
             except BaseException as e:  # noqa: BLE001 — surfaced on submit/flush/close
                 self._err = e
             finally:
@@ -376,7 +474,12 @@ class EventWorker:
 
     def submit(self, fn: Callable) -> None:
         self._check()
-        self._q.put(fn)
+        with trace.span("engine.event.submit"):
+            try:
+                self._q.put_nowait(fn)
+            except queue.Full:
+                trace.count("worker.submit_blocked")
+                self._q.put(fn)
 
     def flush(self) -> None:
         """Wait until every submitted callback has run."""

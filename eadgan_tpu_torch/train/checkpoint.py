@@ -51,6 +51,7 @@ from eadgan_tpu_torch.parallel.mesh import (
     has_model_shards,
     model_shards,
 )
+from eadgan_tpu_torch.utils import trace
 
 __all__ = [
     "save_checkpoint",
@@ -116,7 +117,13 @@ def _maybe_fault_kill_mid_write(path: str, obj: Any) -> None:
 
 def save_checkpoint(path: str, obj: Any) -> None:
     """``torch.save(obj)`` to ``path`` atomically, then the directory
-    fsynced (where the file system allows it)."""
+    fsynced (where the file system allows it).  Traced as a
+    ``checkpoint.save`` span (``utils/trace.py``)."""
+    with trace.span("checkpoint.save"):
+        _save(path, obj)
+
+
+def _save(path: str, obj: Any) -> None:
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     _maybe_fault_kill_mid_write(path, obj)
     _atomic_write(path, lambda f: torch.save(obj, f))
@@ -124,7 +131,8 @@ def save_checkpoint(path: str, obj: Any) -> None:
 
 def _atomic_write(path: str, write) -> None:
     """``write(f)`` into a temporary file beside ``path``, fsynced, renamed
-    over ``path``; then the directory fsynced."""
+    over ``path``; then the directory fsynced.  Each file counts one
+    ``checkpoint.saves`` and its size in ``checkpoint.bytes``."""
     directory = os.path.dirname(path) or "."
     os.makedirs(directory, exist_ok=True)
     tmp = f"{path}.tmp.{os.getpid()}"
@@ -133,7 +141,10 @@ def _atomic_write(path: str, write) -> None:
             write(f)
             f.flush()
             os.fsync(f.fileno())
+            size = f.tell()
         os.replace(tmp, path)
+        trace.count("checkpoint.saves")
+        trace.count("checkpoint.bytes", size)
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
@@ -416,8 +427,9 @@ def save_train_state(ckpt_dir: str, stem: str, step: int, state, keep: int = 0) 
     ``keep`` newest such files (``keep=0``: all).  The trainers'
     ``--keep_states`` flag routes here."""
     path = os.path.join(ckpt_dir, f"{stem}_{step}.ckpt")
-    save_checkpoint(path, train_state_payload(state))
-    prune_saved(ckpt_dir, stem, keep, current_step=step)
+    with trace.span("checkpoint.save"):
+        _save(path, train_state_payload(state))
+        prune_saved(ckpt_dir, stem, keep, current_step=step)
     return path
 
 

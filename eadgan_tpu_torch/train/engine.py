@@ -44,7 +44,6 @@ from __future__ import annotations
 
 import contextlib
 import functools
-import json
 import os
 import time
 from typing import Callable, Iterable, Optional
@@ -65,6 +64,7 @@ from eadgan_tpu_torch.train.chain import (
     plan_windows,
     snapshot_state,
 )
+from eadgan_tpu_torch.utils import trace
 from eadgan_tpu_torch.utils.logging import MetricLogger
 
 __all__ = ["run_epochs", "epoch_batches", "generator_apply"]
@@ -206,7 +206,10 @@ def run_epochs(
     ``EADGAN_FAULT_HANG_MARKER=<path>`` the hang creates that file and a
     process that finds it already there does not hang, so a supervised
     restart survives.  ``profile_dir`` wraps the run in
-    :func:`~eadgan_tpu_torch.utils.profiler.trace`.
+    :func:`~eadgan_tpu_torch.utils.profiler.chrome_trace`.
+    ``EADGAN_TRACE=<path>`` turns the port's spans and counters on for
+    the run (``utils/trace.py``, dropping what was recorded before) and
+    writes them to ``<path>`` as JSON at its end.
 
     ``data_parallel`` trains on the ``data`` axis of ``parallel/``: each
     rank of the process group (one of a world size of 1 is joined on
@@ -249,7 +252,7 @@ def run_epochs(
         raise ValueError("random_flip requires the uint8 image ingest path")
     if chain < 1:
         raise ValueError(f"chain must be >= 1, got {chain}")
-    from eadgan_tpu_torch.utils.profiler import trace
+    from eadgan_tpu_torch.utils.profiler import chrome_trace
 
     device = torch.device(device)
     rows = slice(None)
@@ -290,6 +293,10 @@ def run_epochs(
 
         wd = Watchdog(watchdog).start()
     beat, grace, clear_grace = _heartbeat(wd)
+    trace_path = os.environ.get("EADGAN_TRACE", "")
+    if trace_path:
+        trace.reset()
+        trace.enable()
     loop = dict(
         n_epochs=n_epochs, data=data, batch_size=batch_size, state=state, step_fn=step_fn,
         on_batch=on_batch, device=device, seed=seed, max_steps=max_steps,
@@ -297,7 +304,7 @@ def run_epochs(
         random_flip=random_flip, beat=beat, stop_event=stop_event, rows=rows,
     )
     try:
-        with trace(profile_dir or None):
+        with chrome_trace(profile_dir or None):
             if chain > 1:
                 state = _run_epochs_chained(**loop, chain=chain, chain_periods=chain_periods,
                                             grace=grace, clear_grace=clear_grace)
@@ -328,6 +335,9 @@ def run_epochs(
             wd.stop()
         if logger is not None:
             logger.close()
+        if trace_path:
+            trace.disable()
+            trace.write(trace_path)
     return state
 
 
@@ -394,9 +404,10 @@ def _run_epochs_per_step(
     bit for bit.  With ``verify_progress`` (a watchdog is armed) each
     step's metrics are copied to the host before the beat, which proves
     the device finished the step.  ``on_batch`` None: no side effects (a
-    rank other than 0).  ``EADGAN_CHAIN_TRACE=<path>`` appends one record
-    a step of host seconds: ``wait`` (for the batch), ``step`` (the step
-    enqueued) and ``cb`` (logging, ``on_batch``, the beat)."""
+    rank other than 0).  Traced (``utils/trace.py``), a step's host time
+    is ``engine.feed`` (the batch waited for; its ``s`` is the step),
+    ``engine.step`` (the step enqueued) and ``engine.callback`` (logging,
+    ``on_batch``, the beat), and ``engine.steps`` counts the steps."""
     n_batches = data.shape[0] // batch_size
     start_step = state.step
     batches_done = start_step
@@ -424,42 +435,40 @@ def _run_epochs_per_step(
                   random_flip=random_flip, rows=rows),
         place=place, depth=_PREFETCH_DEPTH,
     )
-    trace_path = os.environ.get("EADGAN_CHAIN_TRACE", "")
-    trace = open(trace_path, "a") if trace_path else None
+    batches = iter(feed)
     try:
-        t_prev = time.perf_counter()
-        for epoch, staged in feed:
-            t0 = time.perf_counter()
-            wait, t_prev = t0 - t_prev, t0
-            (batch,) = staged.get()
-            state, metrics = step_fn(state, batch)
-            t1 = time.perf_counter()
-            if logger is not None:
-                shown = {k: metrics[k] for k in metric_keys} if metric_keys else metrics
-                logger.log(
-                    batches_done,
-                    shown,
-                    epoch=epoch,
-                    n_epochs=n_epochs,
-                    batch=batches_done % n_batches,
-                    n_batches=n_batches,
-                )
-            if on_batch is not None:
-                on_batch(batches_done, state, metrics, (batch,))
-            batches_done += 1
-            if verify_progress:
-                torch.stack([torch.as_tensor(v).float().reshape(()) for v in metrics.values()]).cpu()
-            beat(batches_done)
-            t_prev = time.perf_counter()
-            if trace is not None:
-                trace.write(json.dumps({"s": batches_done - 1, "k": 1, "wait": wait,
-                                        "step": t1 - t0, "cb": t_prev - t1}) + "\n")
+        while True:
+            with trace.span("engine.feed") as fed:
+                item = next(batches, None)
+                if item is None:
+                    break
+                epoch, staged = item
+                (batch,) = staged.get()
+                fed.set(s=batches_done)
+            with trace.span("engine.step"):
+                state, metrics = step_fn(state, batch)
+            with trace.span("engine.callback"):
+                if logger is not None:
+                    shown = {k: metrics[k] for k in metric_keys} if metric_keys else metrics
+                    logger.log(
+                        batches_done,
+                        shown,
+                        epoch=epoch,
+                        n_epochs=n_epochs,
+                        batch=batches_done % n_batches,
+                        n_batches=n_batches,
+                    )
+                if on_batch is not None:
+                    on_batch(batches_done, state, metrics, (batch,))
+                batches_done += 1
+                if verify_progress:
+                    torch.stack([torch.as_tensor(v).float().reshape(()) for v in metrics.values()]).cpu()
+                beat(batches_done)
+            trace.count("engine.steps")
             if stop_event is not None and stop_event.is_set():
                 break
     finally:
         feed.close()
-        if trace is not None:
-            trace.close()
     return state
 
 
@@ -518,12 +527,19 @@ def _run_epochs_chained(
     Without periods, or with ``EADGAN_SYNC_EVENTS=1``, ``on_batch`` runs
     inline with the live state and lazily fetched metrics.
 
-    ``EADGAN_CHAIN_TRACE=<path>`` appends one JSONL record per window of
-    host times in seconds: ``iter`` (the window's indices and masks made
-    and copied, or its raw rows waited for), ``disp`` (its steps
-    enqueued), ``drain`` (the previous window's metrics waited for and
-    logged), ``cb`` (``on_batch``).  Their sum is the time between two
-    window ends.
+    Traced (``utils/trace.py``), each window is an ``engine.window`` span
+    (with its ``s`` and ``k``) over ``engine.feed`` (the window's indices
+    and masks made and copied, or its raw rows waited for),
+    ``engine.dispatch`` (its steps enqueued; ``engine.capture`` for the
+    eager first step and the capture), ``engine.drain.wait`` and
+    ``engine.drain.log`` (the previous window's metrics waited for, then
+    logged) and ``engine.event`` (``on_batch``, or its snapshot and
+    submit); ``engine.flush`` before a capture; a last ``engine.window``
+    without ``s`` drains the last window.  Consecutive window spans
+    tile the loop.  A graph captured while tracing is on also stamps the
+    device's phases of each replayed step, which the drain adds to the
+    ``step.*`` counters (:meth:`~eadgan_tpu_torch.train.chain.
+    ChainedStep.count_phases`).
 
     A data-parallel rank gathers its ``rows`` of each step's batch: its
     columns of the window's (k, B) indices and flip masks, drawn for the
@@ -594,100 +610,110 @@ def _run_epochs_chained(
         step_fn, prepare, pack_keys="auto", generators=(rng,) if on_card and rng is not None else ()
     )
 
-    trace_path = os.environ.get("EADGAN_CHAIN_TRACE", "")
-    trace = open(trace_path, "a") if trace_path else None
     async_events = (bool(chain_periods) and on_batch is not None
                     and os.environ.get("EADGAN_SYNC_EVENTS", "") != "1")
     worker = EventWorker() if async_events else None
     event_stream = torch.cuda.Stream(device) if worker is not None and on_card else None
-    pending = None  # the previous window: (start, k, epoch, host metrics, ready event)
+    # the previous window: (start, k, epoch, host metrics, host stamps, ready event)
+    pending = None
     grace_end = None  # the end of the window that captures, while in flight
 
     def drain():
         nonlocal pending, grace_end
         if pending is None:
             return
-        ps, pk, pepoch, host, ready = pending
+        ps, pk, pepoch, host, stamps, ready = pending
         pending = None
         if ready is not None:
-            ready.synchronize()
-        if logger is not None:
-            keys = chained.resolved_pack_keys
-            values = host.numpy()
-            shown = [keys.index(m) for m in metric_keys] if metric_keys else range(len(keys))
-            for i in range(pk):
-                logger.log(
-                    ps + i, {keys[j]: values[i, j] for j in shown}, epoch=pepoch,
-                    n_epochs=n_epochs, batch=(ps + i) % n_batches, n_batches=n_batches,
-                )
-        if grace_end is not None and ps + pk >= grace_end:
-            grace_end = None
-            clear_grace()  # the captured graph ran: the steady timeout governs
-        beat(ps + pk)  # the device finished the window
+            with trace.span("engine.drain.wait"):
+                ready.synchronize()
+        with trace.span("engine.drain.log"):
+            if logger is not None:
+                keys = chained.resolved_pack_keys
+                values = host.numpy()
+                shown = [keys.index(m) for m in metric_keys] if metric_keys else range(len(keys))
+                for i in range(pk):
+                    logger.log(
+                        ps + i, {keys[j]: values[i, j] for j in shown}, epoch=pepoch,
+                        n_epochs=n_epochs, batch=(ps + i) % n_batches, n_batches=n_batches,
+                    )
+            if stamps is not None:
+                chained.count_phases(stamps.numpy())
+            if grace_end is not None and ps + pk >= grace_end:
+                grace_end = None
+                clear_grace()  # the captured graph ran: the steady timeout governs
+            beat(ps + pk)  # the device finished the window
 
-    t_prev = time.perf_counter()
+    batches = iter(windows)
+    stopped = False
     try:
-        for epoch, ws, k, staged in windows:
-            window = list(staged.get())
-            capturing = chained.will_capture(window)
-            if capturing:
-                if worker is not None:
-                    worker.flush()
-                grace()
-                grace_end = ws + k
-            t0 = time.perf_counter()
-            # no other thread may make CUDA calls while the graph is captured
-            with stager.lock if capturing and stager is not None else contextlib.nullcontext():
-                state, stacked = chained(state, consts, *window)
-            state.step = ws + k
-            if on_card:
-                host = torch.empty(stacked.shape, pin_memory=True)
-                host.copy_(stacked, non_blocking=True)
-                ready = torch.cuda.Event()
-                ready.record()
-            else:
-                host, ready = stacked, None
-            t1 = time.perf_counter()
-            drain()
-            pending = (ws, k, epoch, host, ready)
-            t2 = time.perf_counter()
-            is_event = any((ws + k - 1) % p == 0 for p in chain_periods if p)
-            if on_batch is not None and (is_event or not chain_periods):
-                last = [w[-1] for w in window]
-                fetch = lambda last=last: batch_of(last)  # noqa: E731
-                batch = fetch() if is_event else LazyHostBatch(fetch)
-                if worker is not None and is_event:
-                    snapshot = snapshot_state(state)
-                    done = None
+        while True:
+            with trace.span("engine.window") as window_span:
+                item = None
+                if not stopped:
+                    with trace.span("engine.feed"):
+                        item = next(batches, None)
+                        if item is not None:
+                            epoch, ws, k, staged = item
+                            window = list(staged.get())
+                if item is None:
+                    drain()  # the run's end: the last window's metrics
+                    break
+                window_span.set(s=ws, k=k)
+                capturing = chained.will_capture(window)
+                if capturing:
+                    if worker is not None:
+                        with trace.span("engine.flush"):
+                            worker.flush()
+                    grace()
+                    grace_end = ws + k
+                    trace.count("engine.captures")
+                eager = chained.runs_eagerly(window)
+                with trace.span("engine.capture" if eager else "engine.dispatch"):
+                    # no other thread may make CUDA calls while the graph is captured
+                    with stager.lock if capturing and stager is not None else contextlib.nullcontext():
+                        state, stacked = chained(state, consts, *window)
+                    state.step = ws + k
+                    host, stamps, ready = stacked, chained.window_stamps, None
                     if on_card:
-                        done = torch.cuda.Event()
-                        done.record()
-                    worker.submit(functools.partial(
-                        _run_event, on_batch, ws + k - 1, snapshot, chained.resolved_pack_keys,
-                        host, batch, done, event_stream,
-                    ))
-                else:
-                    on_batch(ws + k - 1, state,
-                             LazyLastMetrics(chained.resolved_pack_keys, stacked), (batch,))
-                    if is_event:
-                        # an inline save holds the loop for seconds, and
-                        # its copies to the host prove the window ran
-                        beat(ws + k)
-            t3 = time.perf_counter()
-            if trace is not None:
-                trace.write(json.dumps({
-                    "s": ws, "k": k, "iter": t0 - t_prev, "disp": t1 - t0,
-                    "drain": t2 - t1, "cb": t3 - t2,
-                }) + "\n")
-            t_prev = t3
-            if stop_event is not None and stop_event.is_set():
-                break
-        drain()
+                        host = torch.empty(stacked.shape, pin_memory=True)
+                        host.copy_(stacked, non_blocking=True)
+                        if stamps is not None:
+                            stamps = torch.empty(stamps.shape, dtype=stamps.dtype,
+                                                 pin_memory=True).copy_(stamps, non_blocking=True)
+                        ready = torch.cuda.Event()
+                        ready.record()
+                drain()
+                pending = (ws, k, epoch, host, stamps, ready)
+                trace.count("engine.windows")
+                trace.count("engine.steps", k)
+                is_event = any((ws + k - 1) % p == 0 for p in chain_periods if p)
+                if on_batch is not None and (is_event or not chain_periods):
+                    with trace.span("engine.event"):
+                        last = [w[-1] for w in window]
+                        fetch = lambda last=last: batch_of(last)  # noqa: E731
+                        batch = fetch() if is_event else LazyHostBatch(fetch)
+                        if worker is not None and is_event:
+                            snapshot = snapshot_state(state)
+                            done = None
+                            if on_card:
+                                done = torch.cuda.Event()
+                                done.record()
+                            worker.submit(functools.partial(
+                                _run_event, on_batch, ws + k - 1, snapshot,
+                                chained.resolved_pack_keys, host, batch, done, event_stream,
+                            ))
+                        else:
+                            on_batch(ws + k - 1, state,
+                                     LazyLastMetrics(chained.resolved_pack_keys, stacked), (batch,))
+                            if is_event:
+                                # an inline save holds the loop for seconds, and
+                                # its copies to the host prove the window ran
+                                beat(ws + k)
+                stopped = stop_event is not None and stop_event.is_set()
     finally:
         if isinstance(windows, Prefetcher):
             windows.close()
-        if trace is not None:
-            trace.close()
         if worker is not None:
             worker.close()
     return state
@@ -699,17 +725,21 @@ def _run_event(on_batch, step, snapshot, keys, host, batch, done, stream):
     ``on_batch`` with the worker's own CUDA ``stream`` current, so its
     device work and copies run beside the next windows' replays instead
     of queueing behind them, then wait for that work before the snapshot's
-    memory, allocated on the training stream, goes back to the allocator."""
+    memory, allocated on the training stream, goes back to the allocator.
+    Traced: ``worker.wait`` (the snapshot waited for) and
+    ``worker.callback`` (``on_batch`` and its device work)."""
     on_card = done is not None
     with torch.cuda.stream(stream) if on_card else contextlib.nullcontext():
         if on_card:
-            done.synchronize()
-        row = host.detach().numpy()[-1]
-        on_batch(step, snapshot, {k: row[i] for i, k in enumerate(keys)}, (batch,))
-        if on_card:
-            finished = torch.cuda.Event()
-            finished.record()
-            finished.synchronize()
+            with trace.span("worker.wait"):
+                done.synchronize()
+        with trace.span("worker.callback"):
+            row = host.detach().numpy()[-1]
+            on_batch(step, snapshot, {k: row[i] for i, k in enumerate(keys)}, (batch,))
+            if on_card:
+                finished = torch.cuda.Event()
+                finished.record()
+                finished.synchronize()
 
 
 def generator_apply(get_generator: Callable):

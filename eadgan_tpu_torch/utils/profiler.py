@@ -9,7 +9,8 @@ fresh frozen approximator on synthetic digits, the approximator on its
 own draws; f32 unless ``--compute bf16``) under
 ``torch.profiler`` for 5 steps after a warm-up, and reports the step
 time by CUDA events, the device's busy share of the profiled window
-(summed kernel time over wall time), the kernel launches per step, the
+(the union of the device operations' intervals on every stream over
+wall time, :func:`busy_union_us`), the kernel launches per step, the
 warp kernel's launches (by its wrapper's count and by the trace) and
 share of the kernel time, and the kernels that take the most device
 time.  ``--chain K`` does the same for the chained engine's step: one
@@ -20,7 +21,7 @@ and profiled over one window.  ``--tf32``
 allows TF32 in convolutions and matrix products (off by default, as in
 ``chip_smoke.py``).  Needs a CUDA card.
 
-:func:`trace` is the trainers' ``--profile_dir``: a ``torch.profiler``
+:func:`chrome_trace` is the trainers' ``--profile_dir``: a ``torch.profiler``
 trace of a whole run, exported as a Chrome trace.
 """
 
@@ -62,8 +63,8 @@ from eadgan_tpu_torch.train.pretrain import (
     pxy_encoder,
 )
 
-__all__ = ["trace", "PIPELINES", "STEPS", "build_step", "first_batch", "step_args", "chained_replays",
-           "profile_step", "sprite_warp_inputs", "mnist_warp_inputs"]
+__all__ = ["chrome_trace", "PIPELINES", "STEPS", "build_step", "first_batch", "step_args", "chained_replays",
+           "profile_step", "busy_union_us", "sprite_warp_inputs", "mnist_warp_inputs"]
 
 # the pipelines whose step trains on a dataset (run_epochs drives them)
 PIPELINES = ("celeba", "pxy", "pxy_color", "rp", "rp_color", "mnist")
@@ -74,7 +75,7 @@ _WARP_KERNEL = "warp_affine_kernel"
 
 
 @contextlib.contextmanager
-def trace(log_dir):
+def chrome_trace(log_dir):
     """``torch.profiler`` trace of the code inside, exported as a Chrome
     trace (``trace_<pid>.json``, open it in Perfetto or chrome://tracing)
     into ``log_dir``; a no-op when ``log_dir`` is None or empty.  It
@@ -218,6 +219,23 @@ def chained_replays(state, step, data, prep: dict, batch_size: int, chain: int):
     return run
 
 
+def busy_union_us(intervals) -> float:
+    """The length of the union of ``(start, end)`` intervals: the device's
+    busy time, where two streams' overlapping operations count once."""
+    total = 0.0
+    start = end = None
+    for a, b in sorted(intervals):
+        if end is None or a > end:
+            if end is not None:
+                total += end - start
+            start, end = a, b
+        elif b > end:
+            end = b
+    if end is not None:
+        total += end - start
+    return total
+
+
 def profile_step(pipeline: str = "celeba", batch_size: int = 128, steps: int = 5, warmup: int = 5,
                  dtype=None, chain: int = 0):
     """Returns (summary dict, profiler table text); ``dtype`` is the
@@ -257,12 +275,14 @@ def profile_step(pipeline: str = "celeba", batch_size: int = 128, steps: int = 5
     # kernels only: a CPU op's device time repeats its kernels', and a
     # user annotation (Optimizer.step) spans kernels already counted
     per_kernel = collections.defaultdict(lambda: [0, 0.0])  # name -> [calls, us]
+    intervals = []
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(
             e, "is_user_annotation", False
         ):
             per_kernel[e.name][0] += 1
             per_kernel[e.name][1] += e.time_range.elapsed_us()
+            intervals.append((e.time_range.start, e.time_range.end))
     # a trace that shows no kernel (CUPTI missing graph replays) says so
     # with None, never with a zero
     seen = bool(per_kernel) or None
@@ -282,7 +302,7 @@ def profile_step(pipeline: str = "celeba", batch_size: int = 128, steps: int = 5
         "profiled_wall_ms": wall_ms,
         "kernels_in_trace": bool(seen),
         "device_kernel_ms": device_ms,
-        "device_busy_share": seen and device_ms / wall_ms,
+        "device_busy_share": seen and busy_union_us(intervals) / 1e3 / wall_ms,
         "kernel_launches_per_step": seen and sum(calls for calls, _ in per_kernel.values()) / steps,
         "warp_launches_per_step": warp_launches / steps,
         "warp_kernels_in_trace_per_step": seen and warp_calls / steps,

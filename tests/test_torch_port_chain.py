@@ -277,16 +277,23 @@ def test_lazy_last_metrics_fetches_once_and_maps_keys():
 
 
 def test_chain_trace_records_every_window(tmp_path, monkeypatch):
-    trace = tmp_path / "trace.jsonl"
-    monkeypatch.setenv("EADGAN_CHAIN_TRACE", str(trace))
+    trace = tmp_path / "trace.json"
+    monkeypatch.setenv("EADGAN_TRACE", str(trace))
     data = np.zeros((12, 4, 4), np.uint8)
     run_epochs(n_epochs=2, data=data, batch_size=2, state=types.SimpleNamespace(step=0),
                step_fn=_port_probe, on_batch=lambda *a: None, device="cpu", chain=4,
                chain_periods=(5,))
-    records = [json.loads(line) for line in trace.read_text().splitlines()]
-    # 6 batches an epoch: events at 0, 5 and 10 end windows
-    assert [(r["s"], r["k"]) for r in records] == [(0, 1), (1, 4), (5, 1), (6, 4), (10, 1), (11, 1)]
-    assert all(r[k] >= 0 for r in records for k in ("iter", "disp", "drain", "cb"))
+    spans = json.loads(trace.read_text())["spans"]
+    windows = sorted((s for s in spans if s["name"] == "engine.window"), key=lambda s: s["start_ns"])
+    # 6 batches an epoch: events at 0, 5 and 10 end windows; the last
+    # window span, without s and k, drains the last window
+    assert [(w["s"], w["k"]) for w in windows[:-1]] == [(0, 1), (1, 4), (5, 1), (6, 4), (10, 1),
+                                                       (11, 1)]
+    assert "s" not in windows[-1]
+    assert all(w["end_ns"] >= w["start_ns"] for w in windows)
+    by_id = {s["id"]: s for s in spans}
+    for name in ("engine.feed", "engine.dispatch", "engine.drain.log"):
+        assert all(by_id[s["parent"]]["name"] == "engine.window" for s in spans if s["name"] == name)
 
 
 def test_restore_keeps_the_optimizers_capturable_setting(tmp_path):
