@@ -31,7 +31,9 @@ a non-zero exit on the first that fails:
    writing float32 and bf16, its abs-max word equal to the plain
    output's; the quantization from layer 1's NCHW input and the others'
    NHWC, with exact .5 ties, -0.0 and all zeros, with its own abs-max and
-   with the abs-max given;
+   with the abs-max given; the Adam kernel (``csrc/adam_fused.cu``) over
+   five steps of CelebA's three optimizers on its real parameters against
+   its plain version beside it on the card (``tools/adam_bench.py``);
 3. train steps on the CPU and on the card from the same weights and
    draws, three steps at batch 4: CelebA at the low-lr config in f32 and
    bf16; the pxy step gray and colored in f32; the rp step gray and
@@ -52,7 +54,9 @@ a non-zero exit on the first that fails:
    same weights, gray and colored (continuous 1e-4, category ids equal);
 4. the main paths, each with its kernel's launch count set to 0 just
    before and read just after, and the warp's count held exactly (a
-   replayed step counts the launches its capture recorded): the CelebA
+   replayed step counts the launches its capture recorded), and the Adam
+   kernel's, one launch an optimizer step (3 a CelebA step, 2 an rp step,
+   1 a pxy step), also in the traced runs' ``adam.launches``: the CelebA
    trainer, ``python -m eadgan_tpu_torch.cli.celeba --batch_size 128
    --max_steps 20`` at its default ``--chain 32`` in f32 on synthetic
    data, saving a train state at step 0 (mid-epoch), then ``--resume
@@ -100,6 +104,9 @@ a non-zero exit on the first that fails:
    MNIST step's (128, 32, 32, 1), and at the scorer's (500, 64, 64, 1)
    and (500, 64, 64, 3) in ``zeros``; the Representer's batch of 500;
    and the fused conv's plain version, bound and host cost per call;
+   CelebA's three Adam steps by the Adam kernel beside their bound (28
+   bytes an element), its plain version and, as yardsticks, torch's
+   fused capturable Adam and the foreach one the port ran before;
 6. robustness, CelebA at batch 128 on 8,192 synthetic faces (64 batches
    an epoch): (a) ``run_epochs`` at ``--chain 32`` in f32 under
    deterministic cuDNN, stopped by an inline event at step 40, hands
@@ -214,6 +221,8 @@ import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+
+CELEBA_ADAMS = 3  # opt_g, opt_d, opt_info: one Adam kernel launch each a CelebA step
 
 # published peaks of one H100 SXM (NVIDIA data sheet), used for bounds
 HBM_BYTES_PER_S = 3.35e12
@@ -414,6 +423,7 @@ def phase_kernel_vs_plain(torch):
     from eadgan_tpu_torch.ops.fused_conv_cuda import fused_conv_lrelu_cuda
     from eadgan_tpu_torch.ops.stn import warp_affine_plain
     from eadgan_tpu_torch.ops.stn_cuda import warp_affine_cuda
+    from eadgan_tpu_torch.tools.adam_bench import kernel_vs_plain
     from eadgan_tpu_torch.transforms import RPQXY, code_to_matrix
     from eadgan_tpu_torch.utils.profiler import mnist_warp_inputs, sprite_warp_inputs
 
@@ -531,7 +541,22 @@ def phase_kernel_vs_plain(torch):
     else:
         fail("fused conv accepted an input that requires grad")
     phase_int8_vs_plain(torch, errs)
+
+    # the Adam kernel: 5 steps of CelebA's three optimizers on its real
+    # parameters against the plain version beside it on the card (the
+    # card tests' bars: FMA contraction parts the moments by a few
+    # roundings and the parameters by a few ulps of 1)
+    adam = kernel_vs_plain(torch.device("cuda"), steps=5)
+    emit({"case": "celeba_optimizers", "kernel": "adam_fused", "steps": 5, "max_err": adam,
+          "tol": ADAM_TOL})
+    check(all(adam[k] <= ADAM_TOL[k] for k in ADAM_TOL), f"Adam kernel vs plain: {adam}")
+    errs["adam_fused"] = adam["param"]
     return errs
+
+
+# the Adam kernel against its plain version after 5 steps: parameters and
+# step counts absolute, moments relative to each tensor's largest
+ADAM_TOL = {"param": 1e-6, "exp_avg": 1e-5, "exp_avg_sq": 1e-5, "step": 0.0}
 
 
 # CPU vs CUDA step losses: float32 (TF32 off) agrees to summation order at
@@ -820,7 +845,7 @@ def span_s(span) -> float:
     return (span["end_ns"] - span["start_ns"]) * 1e-9
 
 
-def chained_loop_ms(trace_path) -> dict:
+def chained_loop_ms(trace_path, adams: int) -> dict:
     """Chained runs, from their ``EADGAN_TRACE`` file's ``engine.*`` spans:
     one ``engine.window`` a window (with ``s`` and ``k``), tiling the
     loop (a last one, without ``s``, drains the last window and is left
@@ -835,15 +860,19 @@ def chained_loop_ms(trace_path) -> dict:
     over the same steps, in ms; and the replayed steps' device split by
     their stamps (the ``step.*`` counters), in ms a step.  The engine's
     counters are held to its spans: a window and its steps counted once
-    each, one capture, every step but the eager first one stamped."""
+    each, one capture, every step but the eager first one stamped, and
+    the Adam kernel (``adam.launches``) launched ``adams`` times a step,
+    one launch an optimizer step, the eager step's and each replay's."""
     recorded = read_trace(trace_path)
     spans, counters = recorded["spans"], recorded["counters"]
     windows = [w for w in trace_spans(recorded, "engine.window") if "k" in w]
     check(len(windows) >= 3, f"{trace_path}: fewer than three windows")
     run = sum(w["k"] for w in windows)
     check(counters.get("engine.windows") == len(windows) and counters.get("engine.steps") == run
-          and counters.get("engine.captures") == 1 and counters.get("step.stamped") == run - 1,
-          f"{trace_path}: counters {counters} for {len(windows)} windows of {run} steps")
+          and counters.get("engine.captures") == 1 and counters.get("step.stamped") == run - 1
+          and counters.get("adam.launches") == adams * run,
+          f"{trace_path}: counters {counters} for {len(windows)} windows of {run} steps, "
+          f"{adams} Adam launches a step")
     timed, steps = windows[2:], sum(w["k"] for w in windows[1:-1])
     ids = {w["id"] for w in timed}
     phases = collections.defaultdict(float)
@@ -856,6 +885,7 @@ def chained_loop_ms(trace_path) -> dict:
         "trace_ms_per_step": {p: t / steps * 1e3 for p, t in sorted(phases.items())},
         "stamped_ms_per_step": {p: counters[f"step.{p}_ns"] / (run - 1) * 1e-6
                                 for p in ("prepare", "fwd_bwd", "optimizer")},
+        "adam_launches_per_step": counters["adam.launches"] / run,
     }
 
 
@@ -865,7 +895,7 @@ def phase_trainer(torch):
     at step 0 only, the warp launched exactly once a step plus once for
     the grid; then ``--resume auto --compute bf16 --chain 1`` continuing
     per step from step 1, inside epoch 0, to the planned total."""
-    from eadgan_tpu_torch.ops import quant_cuda, stn_cuda
+    from eadgan_tpu_torch.ops import adam_cuda, quant_cuda, stn_cuda
     from eadgan_tpu_torch.train.checkpoint import saved_steps
 
     module = "eadgan_tpu_torch.cli.celeba"
@@ -882,13 +912,14 @@ def phase_trainer(torch):
         # one sample interval is the whole run: grids, the checkpoint and
         # the train state are written at step 0 only
         stn_cuda.reset_launch_count()  # counts from here read the main path only
+        adam_cuda.reset_launch_count()
         t0 = time.perf_counter()
         with environ(EADGAN_TRACE=trace):
             run_module(torch, module, common + ["--compute", "f32", "--max_steps", str(total),
                                                 "--sample_interval", str(total), "--jsonl", jsonl])
         wall = time.perf_counter() - t0
-        launches = stn_cuda.launch_count
-        chained = chained_loop_ms(trace)
+        launches, adams = stn_cuda.launch_count, adam_cuda.launch_count
+        chained = chained_loop_ms(trace, CELEBA_ADAMS)
 
         records = read_records(jsonl)
         check([r["step"] for r in records] == list(range(total)), "f32 trainer steps")
@@ -934,14 +965,16 @@ def phase_trainer(torch):
                       f"gen_imgs --quant {quant} grid varying_c{k}")
             check(not os.path.exists(os.path.join(out, "varying_c9")), "gen_imgs: 8 grids")
     check(launches == total + 1, f"warp kernel launched {launches} times in {total} steps + 1 grid")
+    check(adams == CELEBA_ADAMS * total, f"Adam kernel launched {adams} times in {total} steps")
     emit({"trainer": module, "batch_size": 128, "steps": total, "compute": "f32", "chain": 32,
-          "wall_s": wall, **chained, "warp_launches": launches, "last": records[-1]})
+          "wall_s": wall, **chained, "warp_launches": launches, "adam_launches": adams,
+          "last": records[-1]})
     emit({"trainer_resumed": module, "compute": "bf16", "chain": 1, "from_step": 1,
           "steps": [r["step"] for r in resumed], "wall_s": resume_wall,
           "loop_step_ms_host_clock": loop_ms(resumed), "last": resumed[-1]})
     emit({"inference_cli": "eadgan_tpu_torch.cli.gen_imgs", "checkpoint": "checkpoint_0.tar",
           "grids": 8, "wall_s_by_quant": infer, "int8_launches": int8_launches})
-    return {"warp_affine": launches, **int8_launches}
+    return {"warp_affine": launches, "adam_fused": adams, **int8_launches}
 
 
 SAVE_STEPS, SAVE_EVERY = 24, 8  # the save-window runs: steps, and the event period
@@ -1113,7 +1146,7 @@ def phase_mnist_trainers(torch):
         for name in ("generator_0.pt", "encoder_0.pt"):
             check(os.path.isfile(os.path.join(tmp, name)), name)
         check(saved_steps(tmp, "mnist_train_state") == [0], "mnist train state")
-        chained = chained_loop_ms(trace)
+        chained = chained_loop_ms(trace, 3)  # opt_g, opt_d, opt_info
 
         out = os.path.join(tmp, "test")
         run_module(torch, "eadgan_tpu_torch.cli.generate_image",
@@ -1168,7 +1201,7 @@ def phase_dsprites_trainers(torch):
     on ``EADGAN_SYNTH_POS=32`` (61,440 sprites, the real archive's size)
     at its defaults (500 groups, batch 500), its warp launches held to one
     a Representer batch.  Returns the launches by run."""
-    from eadgan_tpu_torch.ops import stn_cuda
+    from eadgan_tpu_torch.ops import adam_cuda, stn_cuda
     from eadgan_tpu_torch.train.checkpoint import saved_steps
 
     launches, out = {}, []
@@ -1178,7 +1211,9 @@ def phase_dsprites_trainers(torch):
         def run(label, module, steps, per_step, grid, argv, keys, first=0):
             jsonl = os.path.join(tmp, f"{label}.jsonl")
             trace = os.path.join(tmp, f"{label}_chain_trace.json")
+            adams = 1 if module.endswith(("pxy", "pxy_color")) else 2  # rp: opt_d, opt_info
             stn_cuda.reset_launch_count()  # counts from here read this run only
+            adam_cuda.reset_launch_count()
             t0 = time.perf_counter()
             with environ(EADGAN_TRACE=trace):
                 run_module(torch, module, ["--batch_size", "128", "--data_dir", tmp,
@@ -1192,12 +1227,15 @@ def phase_dsprites_trainers(torch):
             check(stn_cuda.launch_count == want,
                   f"{label}: warp launched {stn_cuda.launch_count} times, expected {want}")
             launches[label] = stn_cuda.launch_count
+            check(adam_cuda.launch_count == adams * steps,
+                  f"{label}: Adam kernel launched {adam_cuda.launch_count} times in {steps} steps")
             chained = "--chain" not in argv
-            loop = chained_loop_ms(trace) if chained else {
+            loop = chained_loop_ms(trace, adams) if chained else {
                 "loop_step_ms_host_clock": loop_ms(records)}
             out.append({"trainer": module, "run": label, "batch_size": 128, "steps": steps,
                         "chain": 32 if chained else 1, "warp_launches": stn_cuda.launch_count,
-                        "expected_launches": want, "wall_s": wall, **loop, "last": records[-1]})
+                        "expected_launches": want, "adam_launches": adam_cuda.launch_count,
+                        "wall_s": wall, **loop, "last": records[-1]})
 
         def score(label, colored, pxy_file):
             """``cli.score --metric all`` on the run's aligner and its
@@ -1563,6 +1601,7 @@ def phase_timing(torch, errs, probe, int8_launches):
     int8 kernels' launches those of ``gen_imgs --quant int8``."""
     from eadgan_tpu_torch.ops.fused_conv import fused_conv_lrelu_plain
     from eadgan_tpu_torch.ops.fused_conv_cuda import fused_conv_lrelu_cuda
+    from eadgan_tpu_torch.tools.adam_bench import time_optimizers
     from eadgan_tpu_torch.tools.fused_conv_probe import counts
     from eadgan_tpu_torch.utils.timing import (device_ms, host_enqueue_ms, host_ms_per_call,
                                                sleep_cycles_per_ms)
@@ -1661,8 +1700,30 @@ def phase_timing(torch, errs, probe, int8_launches):
         "plain_elem": probe["plain_elem"],
     }
     emit({"fused_conv_timing": conv_kernel})
-    return [warp_kernel, pair_kernel, conv_kernel, *time_int8_kernels(torch, cycles, errs,
-                                                                        int8_launches)]
+
+    # the Adam kernel: CelebA's three optimizer steps against their bound,
+    # its plain version, and torch's fused capturable Adam and the foreach
+    # one the port ran before it (the yardsticks; the port calls neither)
+    adam_timing = time_optimizers(cycles)
+    adam_kernel = {
+        "name": "adam_fused",
+        "route": "cuda",
+        "source": "eadgan_tpu_torch/csrc/adam_fused.cu",
+        "replaces": "torch.optim.Adam(capturable=True) foreach; no Pallas kernel (XLA fuses optax)",
+        "shape": "CelebA opt_g + opt_d + opt_info, 51.84 M elements",
+        "launches": None,
+        "max_abs_err": errs["adam_fused"],
+        "ms": adam_timing["ms"],
+        "plain_ms": adam_timing["plain_ms"],
+        "bound_ms": adam_timing["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": adam_timing["fused_library_ms"],
+        "library_foreach_ms": adam_timing["foreach_library_ms"],
+        "bound_share": adam_timing["bound_share"],
+    }
+    emit({"adam_timing": adam_kernel})
+    return [warp_kernel, pair_kernel, conv_kernel, adam_kernel,
+            *time_int8_kernels(torch, cycles, errs, int8_launches)]
 
 
 # --- phase 6: robustness ----------------------------------------------------
@@ -1947,7 +2008,7 @@ def robust_guard_cost(torch):
                 if guard is not None:
                     guard.uninstall()
             torch.cuda.synchronize()
-            split = chained_loop_ms(trace) if mode == "off_traced" else {}
+            split = chained_loop_ms(trace, CELEBA_ADAMS) if mode == "off_traced" else {}
         check(guard is None or not guard.requested.is_set(), "the guard saw a signal")
         windows = [a.elapsed_time(b) / CHAIN_WINDOW for a, b in zip(marks[1:], marks[2:])]
         record[mode] = {"replayed_ms_cuda_events": statistics.median(windows),
@@ -2472,7 +2533,7 @@ def feed_raw_windows(torch, tmp):
               f"{label}: warp launched {stn_cuda.launch_count} times, expected {RAWWIN_STEPS + 1}")
         launches[label] = stn_cuda.launch_count
         losses[label] = [(r["d_loss"], r["g_loss"]) for r in records]
-        out[label] = {"wall_s": wall, **chained_loop_ms(trace), "last": records[-1]}
+        out[label] = {"wall_s": wall, **chained_loop_ms(trace, CELEBA_ADAMS), "last": records[-1]}
     a, b = (np.array(losses[k]) for k in ("celeba_rawwin", "celeba_resident"))
     emit({"raw_windows": "cli.celeba bf16 --chain 32, 64 steps", "runs": out,
           "loss_max_rel_diff": float(np.max(np.abs(a - b) / np.abs(b))),
@@ -2815,6 +2876,8 @@ def main() -> None:
             k["launches_by_path"] = by_path
         elif k["name"] in probe_launches:
             k.update(launches=probe_launches[k["name"]])
+        elif k["name"] == "adam_fused":  # the CelebA trainer's chained f32 run, 3 a step
+            k["launches"] = celeba["adam_fused"]
         elif k["name"] in jax_int8:  # gen_imgs --quant int8 on the port's tar, then the JAX one
             k["launches_by_path"] = {"gen_imgs": k["launches"], "gen_imgs_jax": jax_int8[k["name"]]}
             k["launches"] = sum(k["launches_by_path"].values())

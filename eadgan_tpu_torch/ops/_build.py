@@ -54,6 +54,8 @@ _SIGNATURES = {
     "eadgan_int8_convt_s2": (_ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _int, _int, _int, _int, _int,
                              _int, _ptr),
     "eadgan_stamp": (_ptr, _int, _ptr),
+    "eadgan_adam_fused": (_ptr, _ptr),
+    "eadgan_adam_launch_bytes": (),
 }
 _i64 = ctypes.c_int64
 _HOST_SIGNATURES = {

@@ -37,7 +37,6 @@ def init_celeba_gan_state(
     float32; ``torch.bfloat16``); parameters are float32 either way, and
     the warp runs on the float32 real batch, as in the JAX package."""
     device = resolve_device(device)
-    on_card = device.type == "cuda"  # Adam capturable for CUDA-graph replay
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         g = CelebaGenerator(
@@ -53,9 +52,9 @@ def init_celeba_gan_state(
     return GanTrainState(
         g=g,
         d=d,
-        opt_g=adam(g.parameters(), config.g_lr, config.b1, config.b2, on_card),
-        opt_d=adam(d.parameters(), config.d_lr, config.b1, config.b2, on_card),
-        opt_info=adam([*g.parameters(), *d.parameters()], config.info_lr, config.b1, config.b2, on_card),
+        opt_g=adam(g.parameters(), config.g_lr, config.b1, config.b2),
+        opt_d=adam(d.parameters(), config.d_lr, config.b1, config.b2),
+        opt_info=adam([*g.parameters(), *d.parameters()], config.info_lr, config.b1, config.b2),
         rng=torch.Generator(device=device).manual_seed(seed),
     )
 

@@ -73,7 +73,6 @@ def init_sprites_gan_state(
     float32; ``torch.bfloat16``); the aligner stays float32.  No G
     optimizer: G's adversarial update lives in ``opt_info`` over G and E."""
     device = resolve_device(device)
-    on_card = device.type == "cuda"  # Adam capturable for CUDA-graph replay
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         g = SpritesGenerator(
@@ -93,8 +92,8 @@ def init_sprites_gan_state(
         e=e,
         pxy=pxy,
         opt_g=None,
-        opt_d=adam(d.parameters(), config.d_lr, config.b1, config.b2, on_card),
-        opt_info=adam([*g.parameters(), *e.parameters()], config.lr, config.b1, config.b2, on_card),
+        opt_d=adam(d.parameters(), config.d_lr, config.b1, config.b2),
+        opt_info=adam([*g.parameters(), *e.parameters()], config.lr, config.b1, config.b2),
         rng=torch.Generator(device=device).manual_seed(seed),
     )
 

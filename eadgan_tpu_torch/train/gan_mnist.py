@@ -55,7 +55,6 @@ def init_mnist_gan_state(
     of G, D and E (None: float32; ``torch.bfloat16``); the approximator
     stays float32.  ``opt_info`` steps G and E together."""
     device = resolve_device(device)
-    on_card = device.type == "cuda"  # Adam capturable for CUDA-graph replay
     kw = dict(img_size=config.img_size, channels=config.channels, dtype=dtype)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
@@ -70,9 +69,9 @@ def init_mnist_gan_state(
         d=d,
         e=e,
         approx=approximator,
-        opt_g=adam(g.parameters(), config.lr, config.b1, config.b2, on_card),
-        opt_d=adam(d.parameters(), config.d_lr, config.b1, config.b2, on_card),
-        opt_info=adam([*g.parameters(), *e.parameters()], config.lr, config.b1, config.b2, on_card),
+        opt_g=adam(g.parameters(), config.lr, config.b1, config.b2),
+        opt_d=adam(d.parameters(), config.d_lr, config.b1, config.b2),
+        opt_info=adam([*g.parameters(), *e.parameters()], config.lr, config.b1, config.b2),
         rng=torch.Generator(device=device).manual_seed(seed),
     )
 

@@ -65,7 +65,7 @@ def init_approximator_state(config: ApproximatorConfig, device=None, seed: int =
     model = approximator_model(seed).to(device).train()
     return EncoderTrainState(
         model=model,
-        opt=adam(model.parameters(), config.lr, config.b1, config.b2, device.type == "cuda"),
+        opt=adam(model.parameters(), config.lr, config.b1, config.b2),
         rng=torch.Generator(device=device).manual_seed(seed),
     )
 
@@ -104,11 +104,10 @@ def init_pxy_state(config: PxyConfig, device=None, seed: int = 0) -> EncoderTrai
     """A fresh aligner and its Adam on ``device`` (the CUDA card when
     None)."""
     device = resolve_device(device)
-    on_card = device.type == "cuda"  # Adam capturable for CUDA-graph replay
     model = pxy_encoder(config.colored, seed).to(device).train()
     return EncoderTrainState(
         model=model,
-        opt=adam(model.parameters(), config.lr, config.b1, config.b2, on_card),
+        opt=adam(model.parameters(), config.lr, config.b1, config.b2),
         rng=torch.Generator(device=device).manual_seed(seed),
     )
 

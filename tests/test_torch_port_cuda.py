@@ -66,6 +66,13 @@ absolute on tanh outputs (each side quantizes its own float32 layer
 outputs, so an activation can round one step apart); and both wrappers'
 refusals.
 
+The Adam kernel (``ops/adam_cuda.py``): five steps of CelebA's three
+optimizers on its real parameters against the plain version on the card,
+and the same on ragged sizes and on views 4 and 8 bytes past a 16-byte
+boundary; a step captured in a CUDA graph and replayed against the same
+steps eager, bit for bit; its refusals; and its launches, one a
+``step()`` eager and counted a replay in the chained rp step.
+
 Tolerances: the warp in float32 2e-5 (nvcc contracts multiply-adds into
 FMA, so a coordinate can land an ulp apart and pick the neighbouring
 texel's weights; bilinear output is continuous, so the error stays
@@ -83,6 +90,7 @@ import pytest
 import torch
 
 from eadgan_tpu_torch.ops import (
+    adam_cuda,
     fused_conv_cuda,
     fused_conv_lrelu,
     fused_conv_lrelu_plain,
@@ -687,3 +695,142 @@ def test_event_snapshots_survive_replays_on_the_card(cuda, monkeypatch):
     for other in ("per_step", "inline"):
         for (i, pa, ba), (j, pb, bb) in zip(runs[other], runs["worker"]):
             assert i == j and torch.equal(pa, pb) and torch.equal(ba, bb), (other, i)
+
+
+# --- the Adam kernel (ops/adam_cuda.py) ---------------------------------------------------------
+
+
+def test_adam_kernel_matches_plain_on_celeba_parameters(cuda):
+    """Five steps of CelebA's three optimizers on its real parameters,
+    fresh gradients before each: the kernel against the plain version run
+    beside it on the card (``tools/adam_bench.py::kernel_vs_plain``).
+    Both compute in float32 in the same order, but nvcc contracts a
+    multiply and an add into one FMA where PyTorch's kernels round twice:
+    the moments part by a few roundings (1e-5 of the tensor's largest),
+    the parameters, within [-1, 1] and moved ~lr a step, by a few ulps of
+    1 (1e-6 absolute, three orders under a step's update); the step
+    counts are exact."""
+    from eadgan_tpu_torch.tools.adam_bench import kernel_vs_plain
+
+    before = adam_cuda.launch_count
+    errs = kernel_vs_plain(cuda, steps=5)
+    assert adam_cuda.launch_count == before + 5 * 3  # one launch a step() of each optimizer
+    assert errs["step"] == 0.0
+    assert errs["param"] <= 1e-6, errs
+    assert errs["exp_avg"] <= 1e-5 and errs["exp_avg_sq"] <= 1e-5, errs
+
+
+# sizes across the chunk (4,096) and 4-element edges, and views whose
+# base is 4 or 8 bytes past a 16-byte boundary (the per-element path)
+ADAM_SIZES = [1, 3, 4, 4095, 4096, 4097, 12289, 300_000]
+
+
+def _adam_tensors(device, offset):
+    gen = torch.Generator(device=device).manual_seed(offset)
+
+    def tensor(n, scale=1.0):
+        base = torch.randn(n + offset, generator=gen, device=device) * scale
+        return base[offset:]
+
+    params = [tensor(n) for n in ADAM_SIZES]
+    grads = [[tensor(n, 1e-2) for n in ADAM_SIZES] for _ in range(3)]
+    return params, grads
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2], ids=["aligned", "4_bytes_off", "8_bytes_off"])
+def test_adam_kernel_matches_plain_on_ragged_and_misaligned_tensors(cuda, offset):
+    params, grads = _adam_tensors(cuda, offset)
+    twins = [p.clone() for p in params]
+    kernel_state = [[torch.zeros_like(p), torch.zeros_like(p), torch.zeros((), device=cuda)]
+                    for p in params]
+    plain_state = [[torch.zeros_like(p), torch.zeros_like(p), torch.zeros((), device=cuda)]
+                   for p in params]
+    done = torch.zeros(1, dtype=torch.int32, device=cuda)
+    for g in grads:
+        adam_cuda.adam_cuda(params, g, *zip(*kernel_state), 1e-3, 0.5, 0.999, 1e-8, done)
+        adam_cuda.adam_plain(twins, g, *zip(*plain_state), 1e-3, 0.5, 0.999, 1e-8)
+    torch.cuda.synchronize()
+    assert done.item() == 0
+    for p, t, (m, v, s), (pm, pv, ps) in zip(params, twins, kernel_state, plain_state):
+        assert float(s) == float(ps) == 3
+        assert (p - t).abs().max().item() <= 1e-6
+        for a, b in ((m, pm), (v, pv)):
+            assert (a - b).abs().max().item() <= 1e-5 * b.abs().max().item()
+
+
+def test_adam_step_captured_and_replayed_equals_eager(cuda):
+    """One eager step, then a step captured into a CUDA graph and replayed
+    three times, against four eager steps from the same start and
+    gradients: the same bits in every parameter, moment and step count
+    (the counts advance on the card at each replay, and the bias
+    corrections with them)."""
+    from eadgan_tpu_torch.train.state import adam
+
+    params, grads = _adam_tensors(cuda, 0)
+    runs = []
+    for captured in (False, True):
+        ps = [p.clone().requires_grad_() for p in params]
+        opt = adam(ps, 1e-3)
+        for p, g in zip(ps, grads[0]):
+            p.grad = g.clone()
+        opt.step()
+        if captured:
+            before = adam_cuda.captured_count, adam_cuda.launch_count
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                opt.step()
+            assert (adam_cuda.captured_count, adam_cuda.launch_count) == (before[0] + 1, before[1])
+            for _ in range(3):
+                graph.replay()
+        else:
+            for _ in range(3):
+                opt.step()
+        torch.cuda.synchronize()
+        runs.append((ps, opt))
+    (eager, opt_e), (replayed, opt_r) = runs
+    for a, b in zip(eager, replayed):
+        assert torch.equal(a, b)
+        sa, sb = opt_e.state[a], opt_r.state[b]
+        assert float(sa["step"]) == float(sb["step"]) == 4
+        assert torch.equal(sa["exp_avg"], sb["exp_avg"]) and torch.equal(sa["exp_avg_sq"], sb["exp_avg_sq"])
+
+
+def test_adam_kernel_rejects(cuda):
+    p = torch.zeros(8, 4, device=cuda)
+    args = lambda p: ([p], [torch.zeros_like(p)], [torch.zeros_like(p)], [torch.zeros_like(p)],
+                      [torch.zeros((), device=cuda)], 1e-3, 0.5, 0.999, 1e-8,
+                      torch.zeros(1, dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        adam_cuda.adam_cuda(*args(p.t()))
+    with pytest.raises(TypeError, match="float32"):
+        adam_cuda.adam_cuda(*args(p.double()))
+    with pytest.raises(TypeError, match="float32"):
+        adam_cuda.adam_cuda(*args(p.bfloat16()))
+    bad = list(args(p))
+    bad[4] = [torch.zeros(())]
+    with pytest.raises(ValueError, match="on cpu"):
+        adam_cuda.adam_cuda(*bad)
+
+
+def test_adam_launches_counted_per_step_and_replay(cuda):
+    """A gray rp step steps two optimizers, ``opt_d`` and ``opt_info``: two
+    launches an eager step, two captured, two counted a replay."""
+    from eadgan_tpu_torch.train.chain import make_chained_step
+    from eadgan_tpu_torch.train.config import SpritesGanConfig
+    from eadgan_tpu_torch.train.gan_dsprites import init_sprites_gan_state, make_sprites_gan_step
+    from eadgan_tpu_torch.train.pretrain import pxy_encoder
+
+    config = SpritesGanConfig(batch_size=4)
+    state = init_sprites_gan_state(config, pxy_encoder(False, seed=1), device=cuda, seed=0)
+    img, _ = sprite_warp_inputs(1, "rp", cuda)
+    window = img[:4].contiguous().expand(4, 4, 64, 64, 1)
+    chained = make_chained_step(make_sprites_gan_step(config), generators=(state.rng,))
+    before, captured = adam_cuda.launch_count, adam_cuda.captured_count
+    chained(state, (), window)  # one eager step, the capture, three replays
+    torch.cuda.synchronize()
+    assert adam_cuda.captured_count == captured + 2 and chained.captured_adams == 2
+    assert adam_cuda.launch_count == before + 2 + 3 * 2
+    chained(state, (), window)  # four replays
+    torch.cuda.synchronize()
+    assert adam_cuda.launch_count == before + 2 + 7 * 2
+    assert all(float(s["step"]) == 8 for s in state.opt_info.state.values())
