@@ -18,6 +18,12 @@ window opens when call B's second window has drained (its first holds
 the eager step and the capture) and closes at the drain of the window in
 which the stop event, set ``--seconds`` after the opening, is seen.
 
+In a traced run (``--trace 1``) the program's own spans and counters
+(``eadgan_tpu_torch/utils/trace.py``) are on for call B alone: reset and
+enabled before it, collected after it, their counters read again when
+the window opens; call A stays untraced.  A program without that module
+records nothing, and the readers of its spans and counters find nothing.
+
 Once the window has closed, the peak memory is read and the program's
 state freed, and the reference trains the same first steps in float32
 from the same weights, rows, flips and draws; :mod:`harness.compare`
@@ -39,6 +45,7 @@ import torch
 
 from counts.step import step_flops
 from counts.warp import warp_bytes
+from counts.work import kernel_work
 from harness import compare, datasets, spec, tracing, weights as weights_mod
 from harness.schedule import first_batches
 from harness.seeds import derive
@@ -49,15 +56,18 @@ class Window:
     is stamped on the host clock; the step that ends the second window
     opens it, arms the stop and (traced) starts the profiler, whose
     stretch runs from the end of the next window over the next
-    ``profile_windows`` windows."""
+    ``profile_windows`` windows.  With the program's ``tracer`` its
+    counters are read as the window opens."""
 
-    def __init__(self, open_step, stretch_begin, stretch_end, seconds, stop, stretch):
+    def __init__(self, open_step, stretch_begin, stretch_end, seconds, stop, stretch, tracer=None):
         self.open_step = open_step
         self.stretch_begin = stretch_begin
         self.stretch_end = stretch_end
         self.seconds = seconds
         self.stop = stop
         self.stretch = stretch
+        self.tracer = tracer
+        self.counters_open = None
         self.t_open = None
         self.t_last = None
         self.last_step = None
@@ -73,6 +83,8 @@ class Window:
             self.timer.start()
             if self.stretch is not None:
                 self.stretch.start()
+            if self.tracer is not None:
+                self.counters_open = self.tracer.collect()["counters"]
         elif self.t_open is not None:
             self.t_last, self.last_step = now, step
             if self.stretch is not None and step == self.stretch_begin:
@@ -110,6 +122,16 @@ def _windows_of(plan_windows, start, chain, periods, n_batches, count=64):
     return ends
 
 
+def _program_tracer():
+    """The program's span and counter module, or None where the program
+    has none."""
+    try:
+        from eadgan_tpu_torch.utils import trace
+    except ImportError:
+        return None
+    return trace
+
+
 def _mark(ctx, what: str) -> None:
     """Set-up's progress on standard error: seconds since the process began."""
     print(f"setup {what}: {time.perf_counter() - ctx.t_start:.3f} s", file=sys.stderr, flush=True)
@@ -138,7 +160,7 @@ def first_steps(ctx) -> FirstSteps:
     disable_tf32()
 
     _mark(ctx, "imports")
-    data = datasets.make(cfg["data"], derive(ctx.seed, "data"), device)
+    data = datasets.make(cfg["data"], derive(ctx.seed, "data"), device, cfg["model"]["img_size"])
     _mark(ctx, "dataset")
     f.weights = weights_mod.make(f.ref.init_spec(cfg), derive(ctx.seed, "weights"), device)
     f.rng_seed, feed_seed = derive(ctx.seed, "draws"), derive(ctx.seed, "feed")
@@ -197,21 +219,30 @@ def run(ctx) -> dict:
     open_step = ends[1]
     profile = traffic["profile_windows"]
     stretch = tracing.Stretch() if ctx.trace else None
+    tracer = _program_tracer() if ctx.trace else None
     stop = threading.Event()
-    window = Window(open_step, ends[2], ends[2 + profile], ctx.seconds, stop, stretch)
+    window = Window(open_step, ends[2], ends[2 + profile], ctx.seconds, stop, stretch, tracer)
     if ctx.trace:
         tracing.warm_up()
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
+    program = None
     try:
+        if tracer is not None:
+            tracer.reset()
+            tracer.enable()
         with contextlib.redirect_stdout(sys.stderr):
             state = run_epochs(
                 state=state, on_batch=p.cli_on_batch(out_dir, data.shape[0]),
                 logger=_logger(MetricLogger, lambda s, m: window.on_step(s))(
                     None, print_every=p.print_every),
                 stop_event=stop, **common)
+        if tracer is not None:
+            program = tracer.collect()
     finally:
         window.close()
+        if tracer is not None:
+            tracer.disable()
     if window.t_open is not None:
         print(f"setup window opened: {window.t_open - ctx.t_start:.3f} s", file=sys.stderr)
     if window.t_open is None or window.last_step is None:
@@ -245,9 +276,15 @@ def run(ctx) -> dict:
         result["records"] = {
             "stretch": stretch_rec, "window": after,
             "flops_per_step": step_flops(f.ref, cfg, batch), "compute": cfg["compute"],
+            "work": kernel_work(f.ref, cfg, batch, cell.config_name, ctx.bench_dir),
             "warp": {"bytes_per_launch": warp_bytes(batch, cfg["model"]["img_size"], cfg["model"]["img_size"],
                                                   cfg["model"]["channels"]),
                      "launches_per_step": cfg["program"]["warps_per_step"]},
         }
+        if program is not None and window.counters_open is not None:
+            # the program's spans and counters of call B, on the host clock of t_open
+            result["records"]["program"] = dict(
+                program, counters_open=window.counters_open,
+                t_open_ns=int(window.t_open * 1e9), t_close_ns=int(window.t_last * 1e9))
     return result
 

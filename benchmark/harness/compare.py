@@ -12,10 +12,13 @@ Four numbers, each the worst case of its kind:
   the engine replays from its captured graph as the measured window does
   (the first is its eager step).  The program's gradient of step ``k`` is
   worked out from its first moments after steps ``k - 1`` and ``k``,
-  ``(m_k - b1 m_(k-1)) / (1 - b1)``.  The reference follows the program
-  step by step: it takes step ``k`` from the program's own state after
-  step ``k - 1`` (parameters, spectral-norm and BatchNorm buffers, Adam's
-  moments and counts), since two runs in different precisions part after
+  ``(m_k - b1 m_(k-1)) / (1 - b1)``, with the ``b1`` of that step's
+  optimizer (``optimizer.b1``: one number, or one for each optimizer).
+  The reference follows the program step by step: it takes step ``k``
+  from the program's own state after step ``k - 1`` (parameters,
+  spectral-norm and BatchNorm buffers, Adam's moments and counts, and
+  the reference's Adams built with the same ``b1`` each), since two runs
+  in different precisions part after
   Adam's first, sign-like step and their later gradients would differ by
   more than a fault does.  The start, which this skips, is what
   ``grad_gap``, ``loss_gap`` and ``change_gap`` check from the seed;
@@ -57,23 +60,36 @@ def host_state(models: Dict[str, torch.nn.Module], opts: Dict[str, torch.optim.O
     }
 
 
-def step_grads(states: list, b1: float) -> list:
+def b1_of(b1, opt: str) -> float:
+    """The first-moment decay of the optimizer ``opt`` from a
+    configuration's ``optimizer.b1``: one number for every Adam, or a map
+    from each optimizer's name to its own."""
+    if isinstance(b1, dict):
+        if opt not in b1:
+            raise KeyError(f"optimizer.b1 names no b1 for {opt!r}: {sorted(b1)}")
+        return float(b1[opt])
+    return float(b1)
+
+
+def step_grads(states: list, b1) -> list:
     """``[{opt: {param: |g_k|}}]`` of each step ``k`` from the host states
-    after each step: ``g_k = (m_k - b1 m_(k-1)) / (1 - b1)``, ``m_(-1) = 0``;
-    a parameter with no moment took no gradient."""
+    after each step: ``g_k = (m_k - b1 m_(k-1)) / (1 - b1)``, ``m_(-1) = 0``,
+    with each optimizer's own ``b1`` (:func:`b1_of`); a parameter with no
+    moment took no gradient."""
     out = []
     for k, st in enumerate(states):
         grads = {}
         for opt, leaves in st["adam"].items():
             grads[opt] = {}
+            b1_opt = b1_of(b1, opt)
             for name, s in leaves.items():
                 if "exp_avg" not in s:
                     grads[opt][name] = 0.0
                     continue
                 g = s["exp_avg"].double()
                 if k > 0 and "exp_avg" in states[k - 1]["adam"][opt][name]:
-                    g = g - b1 * states[k - 1]["adam"][opt][name]["exp_avg"].double()
-                grads[opt][name] = _norm(g) / (1.0 - b1)
+                    g = g - b1_opt * states[k - 1]["adam"][opt][name]["exp_avg"].double()
+                grads[opt][name] = _norm(g) / (1.0 - b1_opt)
         out.append(grads)
     return out
 
@@ -94,6 +110,19 @@ def _reference(ref, cfg: dict, device, quant=None):
     return models, names
 
 
+def _optimizers(ref, models, cfg: dict) -> dict:
+    """The reference's optimizers, each held to its own ``b1`` of the
+    configuration, from which the program's gradients are worked out."""
+    opts = ref.optimizers(models, cfg)
+    for name, opt in opts.items():
+        b1 = b1_of(cfg["optimizer"]["b1"], name)
+        for group in opt.param_groups:
+            if group["betas"][0] != b1:
+                raise ValueError(f"the reference's {name} steps with b1 {group['betas'][0]}, "
+                                 f"the configuration states {b1}")
+    return opts
+
+
 def _batch(ref, cfg: dict, rows, mask, device):
     return ref.prepare(torch.as_tensor(rows).to(device),
                        None if mask is None else torch.as_tensor(mask).to(device), cfg["data"])
@@ -110,7 +139,7 @@ def reference_first_steps(ref, cfg: dict, weights, batches, rng_seed: int, devic
     models, names = _reference(ref, cfg, device, quant)
     for name, model in models.items():
         model.load_state_dict(part(weights, name))
-    opts = ref.optimizers(models, cfg)
+    opts = _optimizers(ref, models, cfg)
     start = {names[id(p)]: p.detach().clone() for m in models.values() for p in m.parameters()}
     gen = torch.Generator(device=device).manual_seed(rng_seed)
     out = {"losses": {}, "grads": {}, "change": {}, "states": []}
@@ -144,7 +173,7 @@ def followed_grads(ref, cfg: dict, weights, states: list, batches, rng_seed: int
         models, names = _reference(ref, cfg, device)
         for name, model in models.items():
             model.load_state_dict(states[k - 1]["models"].get(name, part(weights, name)))
-        opts = ref.optimizers(models, cfg)
+        opts = _optimizers(ref, models, cfg)
         for o, opt in opts.items():
             saved = states[k - 1]["adam"][o]
             for group in opt.param_groups:

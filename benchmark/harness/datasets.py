@@ -1,16 +1,19 @@
-"""Stand-in datasets at the published row counts, made by whole-batch
-tensor operations from the run's seed (on the card in a run), then handed
-to the program as the numpy array its engine takes.
+"""Stand-in datasets at the published row counts and the configuration's
+own image size (``model.img_size``), made by whole-batch tensor
+operations from the run's seed (on the card in a run), then handed to
+the program as the numpy array its engine takes.
 
-- ``faces``: CelebA's stand-in, (rows, 64, 64, 3) uint8: a colour oval
-  on a vertical gradient per row, each row's centre, radii, colour and
-  gradient drawn from the seed (the content of the port's own synthetic
-  faces, drawn for all rows at once);
+- ``faces``: CelebA's stand-in, (rows, size, size, 3) uint8: a colour
+  oval on a vertical gradient per row, each row's centre, radii, colour
+  and gradient drawn from the seed (the content of the port's own
+  synthetic faces, drawn for all rows at once).  The draws are per row
+  and in units of ``size``, drawn ``_CHUNK`` rows a call whatever the
+  size, so one seed gives the same faces at every size;
 - ``sprites``: the dSprites archive's factor grid, (3 shapes x 6 scales x
   40 orientations x 32 x 32 positions, 64, 64) uint8 in {0, 1}: squares,
   ellipses and wedges rasterised at every combination, in the archive's
   row order (shape slowest, y position fastest).  The grid is fixed, as
-  the archive is; the seed orders the epochs.
+  the archive is, at the archive's 64x64; the seed orders the epochs.
 """
 
 from __future__ import annotations
@@ -46,9 +49,14 @@ def faces(rows: int, seed: int, device, size: int = 64) -> np.ndarray:
 SPRITE_GRID = (3, 6, 40, 32, 32)
 
 
-def sprites(rows: int, seed: int, device, size: int = 64) -> np.ndarray:
+SPRITE_SIZE = 64  # the archive's images
+
+
+def sprites(rows: int, seed: int, device, size: int = SPRITE_SIZE) -> np.ndarray:
     """The factor grid's first ``rows`` rows (all of it at 737,280)."""
     del seed  # the archive is one fixed grid
+    if size != SPRITE_SIZE:
+        raise ValueError(f"the dSprites archive is {SPRITE_SIZE}x{SPRITE_SIZE}, {size} asked")
     total = math.prod(SPRITE_GRID)
     if rows > total:
         raise ValueError(f"the grid has {total} rows, {rows} asked")
@@ -81,5 +89,7 @@ def sprites(rows: int, seed: int, device, size: int = 64) -> np.ndarray:
 MAKERS = {"faces": faces, "sprites": sprites}
 
 
-def make(data_cfg: dict, seed: int, device) -> np.ndarray:
-    return MAKERS[data_cfg["maker"]](data_cfg["rows"], seed, device)
+def make(data_cfg: dict, seed: int, device, size: int) -> np.ndarray:
+    """A configuration's stand-in dataset: its ``data``'s maker and rows,
+    at ``size``, the configuration's ``model.img_size``."""
+    return MAKERS[data_cfg["maker"]](data_cfg["rows"], seed, device, size)

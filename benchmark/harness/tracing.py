@@ -8,6 +8,13 @@ profiler's own clock; device operations are clipped to it.  The device's
 busy time is the union of the intervals of every device operation
 (kernels, copies, sets) on every stream, so two streams' overlapping work
 counts once.
+
+Where the program records its own spans (``eadgan_tpu_torch/utils/
+trace.py``, on while the driver's traced call runs), each also opens a
+``record_function`` of its name, so the stretch holds them on the
+profiler's clock beside the device's operations and the launch queue's
+"Command Buffer Full" stalls; ``reduce`` hands them on as ``host_spans``
+with every idle interval, ``idle``.
 """
 
 from __future__ import annotations
@@ -18,6 +25,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 MARK = "bench.stretch"
+QUEUE_FULL = "Command Buffer Full"  # the host blocked on a full launch queue
 _DEVICE_KINDS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
@@ -115,6 +123,7 @@ class Stretch:
         lo = hi = None
         device: List[Tuple[int, int, str]] = []
         host: List[Tuple[int, int, str]] = []
+        marks: List[Tuple[int, int, str, int]] = []  # the program's spans, the queue's stalls
         # ranges a host annotation opens are mirrored on the device's
         # timeline; they are no device operation
         annotations = {MARK}
@@ -130,8 +139,12 @@ class Stretch:
                     device.append((start, end, e.name()))
             elif e.name() == MARK:
                 lo, hi = start, end
+            elif e.name() in annotations:
+                marks.append((start, end, e.name(), e.device_resource_id()))
             else:
                 host.append((start, end, e.name()))
+                if e.name() == QUEUE_FULL:
+                    marks.append((start, end, e.name(), e.device_resource_id()))
         self._prof = None
         if lo is None:
             return None
@@ -142,7 +155,8 @@ class Stretch:
         for a, b, n in clipped:
             by_name[n] += (b - a) * 1e-9
             counts[n] += 1
-        gaps = sorted(idle_gaps(intervals, lo, hi), key=lambda g: g[0] - g[1])[:top]
+        idle = idle_gaps(intervals, lo, hi)
+        gaps = sorted(idle, key=lambda g: g[0] - g[1])[:top]
         named = []
         for a, b in gaps:
             mid = (a + b) // 2
@@ -157,4 +171,8 @@ class Stretch:
             "device_ops": [[n, s] for n, s in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]],
             "idle_gaps": named,
             "steps": self.steps,
+            # from the stretch's start, in ns: [name, start, end, thread]
+            # of each span overlapping it, and each idle interval
+            "host_spans": [[n, a - lo, b - lo, t] for a, b, n, t in marks if b > lo and a < hi],
+            "idle": [[a - lo, b - lo] for a, b in idle],
         }

@@ -51,7 +51,7 @@ def test_the_followed_reference_retraces_its_own_run(small_root):
     from harness import datasets, schedule, weights
 
     w = weights.make(ref.init_spec(cfg), seed=5, device="cpu")
-    data = datasets.make(cfg["data"], 1, "cpu")
+    data = datasets.make(cfg["data"], 1, "cpu", cfg["model"]["img_size"])
     batches = [(data[rows], mask) for rows, mask in schedule.first_batches(data.shape[0], 4, 3, 9, False)]
     own = compare.reference_first_steps(ref, cfg, w, batches, 13, "cpu", keep_states=True)
     followed = compare.followed_grads(ref, cfg, w, own["states"], batches, 13, "cpu")

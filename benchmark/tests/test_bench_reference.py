@@ -38,7 +38,7 @@ def test_reference_step_agrees_with_the_port(name):
     for k, m in models.items():
         m.load_state_dict(weights.part(w, k))
     opts = ref.optimizers(models, cfg)
-    data = datasets.make(dict(cfg["data"], rows=8), seed=3, device="cpu")
+    data = datasets.make(dict(cfg["data"], rows=8), seed=3, device="cpu", size=cfg["model"]["img_size"])
     rows = torch.as_tensor(data[:4])
     mask = torch.tensor([True, False, True, False]) if cfg["data"]["flip"] else None
     real = ref.prepare(rows, mask, cfg["data"])
@@ -90,10 +90,10 @@ def test_reference_step_agrees_with_the_port(name):
 
 
 def test_datasets_have_the_published_row_shapes():
-    faces = datasets.make({"maker": "faces", "rows": 5}, seed=1, device="cpu")
-    sprites = datasets.make({"maker": "sprites", "rows": 5}, seed=1, device="cpu")
+    faces = datasets.make({"maker": "faces", "rows": 5}, seed=1, device="cpu", size=64)
+    sprites = datasets.make({"maker": "sprites", "rows": 5}, seed=1, device="cpu", size=64)
     assert faces.shape == (5, 64, 64, 3) and faces.dtype == np.uint8
     assert sprites.shape == (5, 64, 64) and set(np.unique(sprites)) <= {0, 1}
     assert int(np.prod(datasets.SPRITE_GRID)) == 737_280
-    again = datasets.make({"maker": "faces", "rows": 5}, seed=1, device="cpu")
+    again = datasets.make({"maker": "faces", "rows": 5}, seed=1, device="cpu", size=64)
     assert np.array_equal(faces, again)
