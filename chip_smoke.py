@@ -34,6 +34,12 @@ a non-zero exit on the first that fails:
    with the abs-max given; the Adam kernel (``csrc/adam_fused.cu``) over
    five steps of CelebA's three optimizers on its real parameters against
    its plain version beside it on the card (``tools/adam_bench.py``);
+   the spectral norm's kernels (``csrc/spectral_norm.cu``) at CelebA's
+   four discriminator shapes and four of the rp step's (two on the large
+   path, two on one block), bf16 and float32, against the plain version (``tools/sn_bench.py::
+   kernel_vs_plain``: sigma and ``u'`` within 1e-5, the normalized weight
+   bit-equal to ``(W / s).to(dtype)`` for the kernels' sigma, the
+   gradient within 1e-4 of autograd through the plain version);
 3. train steps on the CPU and on the card from the same weights and
    draws, three steps at batch 4: CelebA at the low-lr config in f32 and
    bf16; the pxy step gray and colored in f32; the rp step gray and
@@ -56,7 +62,9 @@ a non-zero exit on the first that fails:
    before and read just after, and the warp's count held exactly (a
    replayed step counts the launches its capture recorded), and the Adam
    kernel's, one launch an optimizer step (3 a CelebA step, 2 an rp step,
-   1 a pxy step), also in the traced runs' ``adam.launches``: the CelebA
+   1 a pxy step), also in the traced runs' ``adam.launches``, and the
+   spectral norm's ``sn.launches``, the census's launches a CelebA step
+   and a gray rp step (the other trainers' are reported): the CelebA
    trainer, ``python -m eadgan_tpu_torch.cli.celeba --batch_size 128
    --max_steps 20`` at its default ``--chain 32`` in f32 on synthetic
    data, saving a train state at step 0 (mid-epoch), then ``--resume
@@ -106,7 +114,11 @@ a non-zero exit on the first that fails:
    and the fused conv's plain version, bound and host cost per call;
    CelebA's three Adam steps by the Adam kernel beside their bound (28
    bytes an element), its plain version and, as yardsticks, torch's
-   fused capturable Adam and the foreach one the port ran before;
+   fused capturable Adam and the foreach one the port ran before; a
+   CelebA step's and an rp step's spectral-norm calls (24 forwards and 20
+   backwards, 39 and 33) by the kernels, forwards and backwards apart, in
+   a replayed CUDA graph, beside their bound (6 bytes an element forward,
+   10 backward) and the plain version (``tools/sn_bench.py``);
 6. robustness, CelebA at batch 128 on 8,192 synthetic faces (64 batches
    an epoch): (a) ``run_epochs`` at ``--chain 32`` in f32 under
    deterministic cuDNN, stopped by an inline event at step 40, hands
@@ -424,6 +436,7 @@ def phase_kernel_vs_plain(torch):
     from eadgan_tpu_torch.ops.stn import warp_affine_plain
     from eadgan_tpu_torch.ops.stn_cuda import warp_affine_cuda
     from eadgan_tpu_torch.tools.adam_bench import kernel_vs_plain
+    from eadgan_tpu_torch.tools.sn_bench import kernel_vs_plain as sn_kernel_vs_plain
     from eadgan_tpu_torch.transforms import RPQXY, code_to_matrix
     from eadgan_tpu_torch.utils.profiler import mnist_warp_inputs, sprite_warp_inputs
 
@@ -551,7 +564,27 @@ def phase_kernel_vs_plain(torch):
           "tol": ADAM_TOL})
     check(all(adam[k] <= ADAM_TOL[k] for k in ADAM_TOL), f"Adam kernel vs plain: {adam}")
     errs["adam_fused"] = adam["param"]
+
+    # the spectral norm's kernels: CelebA's discriminator and four rp
+    # layers (the largest conv and dense on the large path, the first conv
+    # and the 7-code head on one block) against the plain version, with
+    # the card tests' bars
+    for shape in SN_CASES:
+        for dtype in (torch.bfloat16, None):
+            r = sn_kernel_vs_plain(shape, dtype, torch.device("cuda"))
+            emit({"case": "sn", "kernel": "spectral_norm", **r, "tol": SN_TOL})
+            check(r["wn_bit_equal"] and r["state_written"]
+                  and all(r[k] <= SN_TOL[k] for k in SN_TOL), f"spectral norm vs plain: {r}")
+            errs["spectral_norm_grad_gap"] = max(errs.get("spectral_norm_grad_gap", 0.0),
+                                                 r["grad_gap"])
     return errs
+
+
+# CelebA's discriminator; rp's largest conv and dense layers (the large
+# path) and its first conv and 7-code head (one block)
+SN_CASES = [(128, 3, 4, 4), (256, 128, 4, 4), (512, 256, 4, 4), (1024, 512, 4, 4), (64, 64, 4, 4),
+            (128, 1024), (32, 1, 4, 4), (7, 128)]
+SN_TOL = {"sigma_gap": 1e-5, "u_gap": 1e-5, "grad_gap": 1e-4, "closed_form_gap": 1e-5}
 
 
 # the Adam kernel against its plain version after 5 steps: parameters and
@@ -845,7 +878,7 @@ def span_s(span) -> float:
     return (span["end_ns"] - span["start_ns"]) * 1e-9
 
 
-def chained_loop_ms(trace_path, adams: int) -> dict:
+def chained_loop_ms(trace_path, adams: int, sn=None) -> dict:
     """Chained runs, from their ``EADGAN_TRACE`` file's ``engine.*`` spans:
     one ``engine.window`` a window (with ``s`` and ``k``), tiling the
     loop (a last one, without ``s``, drains the last window and is left
@@ -862,7 +895,9 @@ def chained_loop_ms(trace_path, adams: int) -> dict:
     counters are held to its spans: a window and its steps counted once
     each, one capture, every step but the eager first one stamped, and
     the Adam kernel (``adam.launches``) launched ``adams`` times a step,
-    one launch an optimizer step, the eager step's and each replay's."""
+    one launch an optimizer step, the eager step's and each replay's, and
+    the spectral norm's kernels (``sn.launches``) ``sn`` times a step
+    where given (reported as ``sn_launches_per_step`` either way)."""
     recorded = read_trace(trace_path)
     spans, counters = recorded["spans"], recorded["counters"]
     windows = [w for w in trace_spans(recorded, "engine.window") if "k" in w]
@@ -873,6 +908,8 @@ def chained_loop_ms(trace_path, adams: int) -> dict:
           and counters.get("adam.launches") == adams * run,
           f"{trace_path}: counters {counters} for {len(windows)} windows of {run} steps, "
           f"{adams} Adam launches a step")
+    check(sn is None or counters.get("sn.launches") == sn * run,
+          f"{trace_path}: sn.launches {counters.get('sn.launches')} for {run} steps, {sn} a step")
     timed, steps = windows[2:], sum(w["k"] for w in windows[1:-1])
     ids = {w["id"] for w in timed}
     phases = collections.defaultdict(float)
@@ -886,6 +923,7 @@ def chained_loop_ms(trace_path, adams: int) -> dict:
         "stamped_ms_per_step": {p: counters[f"step.{p}_ns"] / (run - 1) * 1e-6
                                 for p in ("prepare", "fwd_bwd", "optimizer")},
         "adam_launches_per_step": counters["adam.launches"] / run,
+        "sn_launches_per_step": counters.get("sn.launches", 0) / run,
     }
 
 
@@ -895,10 +933,12 @@ def phase_trainer(torch):
     at step 0 only, the warp launched exactly once a step plus once for
     the grid; then ``--resume auto --compute bf16 --chain 1`` continuing
     per step from step 1, inside epoch 0, to the planned total."""
-    from eadgan_tpu_torch.ops import adam_cuda, quant_cuda, stn_cuda
+    from eadgan_tpu_torch.ops import adam_cuda, quant_cuda, sn_cuda, stn_cuda
+    from eadgan_tpu_torch.tools.sn_bench import census, launches_per_step
     from eadgan_tpu_torch.train.checkpoint import saved_steps
 
     module = "eadgan_tpu_torch.cli.celeba"
+    sn_per_step = launches_per_step(census("celeba", 4))  # by the layers' sizes
     stem = "celeba_train_state"  # the trainer's train-state files (not imported: runpy runs it)
     total = 20
     with tempfile.TemporaryDirectory(prefix="eadgan_smoke_") as tmp, \
@@ -913,13 +953,14 @@ def phase_trainer(torch):
         # the train state are written at step 0 only
         stn_cuda.reset_launch_count()  # counts from here read the main path only
         adam_cuda.reset_launch_count()
+        sn_cuda.reset_launch_count()
         t0 = time.perf_counter()
         with environ(EADGAN_TRACE=trace):
             run_module(torch, module, common + ["--compute", "f32", "--max_steps", str(total),
                                                 "--sample_interval", str(total), "--jsonl", jsonl])
         wall = time.perf_counter() - t0
-        launches, adams = stn_cuda.launch_count, adam_cuda.launch_count
-        chained = chained_loop_ms(trace, CELEBA_ADAMS)
+        launches, adams, sns = stn_cuda.launch_count, adam_cuda.launch_count, sn_cuda.launch_count
+        chained = chained_loop_ms(trace, CELEBA_ADAMS, sn_per_step)
 
         records = read_records(jsonl)
         check([r["step"] for r in records] == list(range(total)), "f32 trainer steps")
@@ -966,15 +1007,17 @@ def phase_trainer(torch):
             check(not os.path.exists(os.path.join(out, "varying_c9")), "gen_imgs: 8 grids")
     check(launches == total + 1, f"warp kernel launched {launches} times in {total} steps + 1 grid")
     check(adams == CELEBA_ADAMS * total, f"Adam kernel launched {adams} times in {total} steps")
+    check(sns == sn_per_step * total,
+          f"spectral norm's kernels launched {sns} times in {total} steps, {sn_per_step} a step")
     emit({"trainer": module, "batch_size": 128, "steps": total, "compute": "f32", "chain": 32,
           "wall_s": wall, **chained, "warp_launches": launches, "adam_launches": adams,
-          "last": records[-1]})
+          "sn_launches": sns, "last": records[-1]})
     emit({"trainer_resumed": module, "compute": "bf16", "chain": 1, "from_step": 1,
           "steps": [r["step"] for r in resumed], "wall_s": resume_wall,
           "loop_step_ms_host_clock": loop_ms(resumed), "last": resumed[-1]})
     emit({"inference_cli": "eadgan_tpu_torch.cli.gen_imgs", "checkpoint": "checkpoint_0.tar",
           "grids": 8, "wall_s_by_quant": infer, "int8_launches": int8_launches})
-    return {"warp_affine": launches, "adam_fused": adams, **int8_launches}
+    return {"warp_affine": launches, "adam_fused": adams, "spectral_norm": sns, **int8_launches}
 
 
 SAVE_STEPS, SAVE_EVERY = 24, 8  # the save-window runs: steps, and the event period
@@ -1191,7 +1234,9 @@ def phase_dsprites_trainers(torch):
     synthetic sprites (540 images, 4 batches an epoch), at the default
     ``--chain 32``: each run's warp launches are counted from 0 and must
     be exactly one per pxy step and three per rp step, plus the step-0
-    grid's (pxy: one align; rp: one align and one distort).  The gray rp
+    grid's (pxy: one align; rp: one align and one distort), and the gray
+    rp runs' chained steps the spectral norm's launches of the census's
+    gray rp step (``sn.launches`` in the trace).  The gray rp
     run saves its train state at step 0 and the bf16 run resumes it per
     step (``--chain 1``) to the planned total (5 epochs, 20 steps).  Then
     a longer chained gray rp run on ``EADGAN_SYNTH_POS=8`` (3,840
@@ -1202,8 +1247,10 @@ def phase_dsprites_trainers(torch):
     at its defaults (500 groups, batch 500), its warp launches held to one
     a Representer batch.  Returns the launches by run."""
     from eadgan_tpu_torch.ops import adam_cuda, stn_cuda
+    from eadgan_tpu_torch.tools.sn_bench import census, launches_per_step
     from eadgan_tpu_torch.train.checkpoint import saved_steps
 
+    rp_sn = launches_per_step(census("rp", 4))  # the gray rp step's, by the layers' sizes
     launches, out = {}, []
     with tempfile.TemporaryDirectory(prefix="eadgan_sprites_") as tmp, \
             environ(EADGAN_PLATFORM="cuda", EADGAN_SYNTH_POS="3"):
@@ -1230,7 +1277,8 @@ def phase_dsprites_trainers(torch):
             check(adam_cuda.launch_count == adams * steps,
                   f"{label}: Adam kernel launched {adam_cuda.launch_count} times in {steps} steps")
             chained = "--chain" not in argv
-            loop = chained_loop_ms(trace, adams) if chained else {
+            sn = rp_sn if module.endswith(".rp") else None  # held for the gray rp step
+            loop = chained_loop_ms(trace, adams, sn) if chained else {
                 "loop_step_ms_host_clock": loop_ms(records)}
             out.append({"trainer": module, "run": label, "batch_size": 128, "steps": steps,
                         "chain": 32 if chained else 1, "warp_launches": stn_cuda.launch_count,
@@ -1603,6 +1651,7 @@ def phase_timing(torch, errs, probe, int8_launches):
     from eadgan_tpu_torch.ops.fused_conv_cuda import fused_conv_lrelu_cuda
     from eadgan_tpu_torch.tools.adam_bench import time_optimizers
     from eadgan_tpu_torch.tools.fused_conv_probe import counts
+    from eadgan_tpu_torch.tools.sn_bench import census, time_step_calls
     from eadgan_tpu_torch.utils.timing import (device_ms, host_enqueue_ms, host_ms_per_call,
                                                sleep_cycles_per_ms)
 
@@ -1722,7 +1771,28 @@ def phase_timing(torch, errs, probe, int8_launches):
         "bound_share": adam_timing["bound_share"],
     }
     emit({"adam_timing": adam_kernel})
-    return [warp_kernel, pair_kernel, conv_kernel, adam_kernel,
+
+    # the spectral norm: a CelebA step's 24 forwards and 20 backwards and an
+    # rp step's 39 and 33, replayed from a CUDA graph, against their bound
+    # and the plain version's (the layers' torch expression)
+    sn_timing = {p: time_step_calls(census(p, 4)) for p in ("celeba", "rp")}
+    emit({"sn_timing": sn_timing})
+    celeba_sn = sn_timing["celeba"]
+    sn_kernel = {
+        "name": "spectral_norm",
+        "route": "cuda",
+        "source": "eadgan_tpu_torch/csrc/spectral_norm.cu",
+        "replaces": "none: XLA's fusion of flax's SpectralNorm (torch's ~35 kernels a layer call before)",
+        "shape": "CelebA D, 24 forwards + 20 backwards a step, 11.02 M elements",
+        "launches": None,
+        "max_rel_grad_gap": errs["spectral_norm_grad_gap"],  # of the largest element
+        **{k: celeba_sn[k] for k in ("ms", "forward_ms", "backward_ms", "plain_ms", "bound_ms",
+                                     "bound_share", "launches_per_step")},
+        "bound_by": "bytes",
+        "rp": {k: sn_timing["rp"][k] for k in ("ms", "forward_ms", "backward_ms", "plain_ms",
+                                               "bound_ms", "launches_per_step")},
+    }
+    return [warp_kernel, pair_kernel, conv_kernel, adam_kernel, sn_kernel,
             *time_int8_kernels(torch, cycles, errs, int8_launches)]
 
 
@@ -2878,6 +2948,8 @@ def main() -> None:
             k.update(launches=probe_launches[k["name"]])
         elif k["name"] == "adam_fused":  # the CelebA trainer's chained f32 run, 3 a step
             k["launches"] = celeba["adam_fused"]
+        elif k["name"] == "spectral_norm":  # the same run, the census's launches a step
+            k["launches"] = celeba["spectral_norm"]
         elif k["name"] in jax_int8:  # gen_imgs --quant int8 on the port's tar, then the JAX one
             k["launches_by_path"] = {"gen_imgs": k["launches"], "gen_imgs_jax": jax_int8[k["name"]]}
             k["launches"] = sum(k["launches_by_path"].values())

@@ -19,7 +19,10 @@ would handle differently:
   ``weight_u``/``weight_v`` scheme.  The power step always runs in
   float32 on the float32 weight: the JAX package's ``nn.SpectralNorm``
   wraps the bf16 layer but takes no dtype itself, so it normalizes the
-  float32 kernel and the layer casts the result;
+  float32 kernel and the layer casts the result.  An unsharded layer
+  takes ``ops/sn_cuda.py::spectral_norm``, which writes the normalized
+  weight in the compute type (on the card by its kernels, forward and
+  backward), so the layer's own cast is a no-op;
 * :class:`TorchBatchNorm` normalizes with the biased batch variance
   (E[x^2] - E[x]^2, as flax computes it) and also updates the running
   variance with the biased value, where torch's would use the unbiased.
@@ -52,6 +55,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from eadgan_tpu_torch.ops.sn_cuda import SN_EPS, l2n, spectral_norm
 from eadgan_tpu_torch.parallel.mesh import (
     axis_size,
     copy_to_model,
@@ -71,13 +75,6 @@ __all__ = [
     "no_stat_updates",
     "upsample_nearest",
 ]
-
-_SN_EPS = 1e-12
-
-
-def _l2n(x: torch.Tensor) -> torch.Tensor:
-    return x * torch.rsqrt((x * x).sum() + _SN_EPS)
-
 
 def _add_bias(y: torch.Tensor, bias, dtype) -> torch.Tensor:
     """flax's bias step under a compute dtype: ``y`` (conv output in
@@ -187,7 +184,8 @@ class _SpectralNorm:
     ``sigma = v W u^T`` and the weight is divided by ``sigma`` (unless it
     is 0).  ``u`` (shape (out,)) and ``sigma`` are stored only in
     training mode; in eval mode the step is still taken, from the stored
-    ``u``, and discarded.
+    ``u``, and discarded.  Unsharded, :func:`spectral_norm` takes the
+    step and returns the weight in the layer's compute type.
 
     On a model-sharded weight (this rank's rows of W) the same step in
     float32: ``v = l2n(sum over the group of u[rows] W_rows^T)``, this
@@ -204,29 +202,27 @@ class _SpectralNorm:
         self.update_stats = True
 
     def normalized_weight(self) -> torch.Tensor:
-        w = self.weight
-        w_mat = w.reshape(w.shape[0], -1)  # (out, K); this rank's rows when sharded
+        """The weight over sigma: in the compute type unsharded, float32
+        on a model-sharded weight (whose layer casts it)."""
+        update = self.training and self.update_stats
         shard = self.model_shard
         if shard is None:
+            return spectral_norm(self.weight, self.u, self.sigma, self.compute_dtype, update)
+        w = self.weight
+        w_mat = w.reshape(w.shape[0], -1)  # (out, K): this rank's rows
+        mesh = shard.mesh
+        with torch.no_grad():
+            v = l2n(reduce_from_model(self.u[shard.rows] @ w_mat, mesh))
+            u = w_mat @ v
+            u = u * torch.rsqrt(reduce_from_model((u * u).sum(), mesh) + SN_EPS)
+        sigma = reduce_from_model(torch.dot(w_mat @ v, u), mesh)
+        if update:
             with torch.no_grad():
-                v = _l2n(self.u @ w_mat)  # (K,)
-                u = _l2n(w_mat @ v)  # (out,)
-            sigma = torch.dot(w_mat @ v, u)
-        else:
-            mesh = shard.mesh
-            with torch.no_grad():
-                v = _l2n(reduce_from_model(self.u[shard.rows] @ w_mat, mesh))
-                u = w_mat @ v
-                u = u * torch.rsqrt(reduce_from_model((u * u).sum(), mesh) + _SN_EPS)
-            sigma = reduce_from_model(torch.dot(w_mat @ v, u), mesh)
-        if self.training and self.update_stats:
-            with torch.no_grad():
-                self.u.copy_(u if shard is None else gather_from_model(u, 0, shard.mesh))
+                self.u.copy_(gather_from_model(u, 0, mesh))
                 self.sigma.copy_(sigma)
-        if shard is not None:
-            # each rank divides only its rows by sigma, so the loss's gradient
-            # by sigma is a sum over the group: copy's backward sums it
-            sigma = copy_to_model(sigma, shard.mesh)
+        # each rank divides only its rows by sigma, so the loss's gradient
+        # by sigma is a sum over the group: copy's backward sums it
+        sigma = copy_to_model(sigma, mesh)
         return w / torch.where(sigma != 0, sigma, torch.ones_like(sigma))
 
 

@@ -56,6 +56,9 @@ _SIGNATURES = {
     "eadgan_stamp": (_ptr, _int, _ptr),
     "eadgan_adam_fused": (_ptr, _ptr),
     "eadgan_adam_launch_bytes": (),
+    "eadgan_sn_forward": (_ptr, _ptr, _ptr, _ptr, _int, _ptr, _ptr, _ptr, _ptr, _ptr, _int, _int, _int,
+                          _int, _ptr),
+    "eadgan_sn_backward": (_ptr, _int, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _int, _int, _int, _ptr),
 }
 _i64 = ctypes.c_int64
 _HOST_SIGNATURES = {

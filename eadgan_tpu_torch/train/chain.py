@@ -37,7 +37,7 @@ from typing import Callable, Iterator, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from eadgan_tpu_torch.ops import _build, adam_cuda, stamp_cuda, stn_cuda
+from eadgan_tpu_torch.ops import _build, adam_cuda, sn_cuda, stamp_cuda, stn_cuda
 from eadgan_tpu_torch.utils import trace
 
 __all__ = [
@@ -77,9 +77,10 @@ class ChainedStep:
 
     The host's step counter (``state.step += 1`` in the bodies) moves
     once at capture and never on replay: the caller sets it after each
-    window.  The warp and Adam kernels' launches recorded by the capture
-    are counted after each replay (``stn_cuda.count_replayed``,
-    ``adam_cuda.count_replayed``).
+    window.  The warp, Adam and spectral-norm kernels' launches recorded
+    by the capture are counted after each replay
+    (``stn_cuda.count_replayed``, ``adam_cuda.count_replayed``,
+    ``sn_cuda.count_replayed``).
 
     With tracing on at capture (``utils/trace.py``) the graph also holds
     the step's device phase stamps (:class:`_Stamps`): while tracing is
@@ -101,6 +102,7 @@ class ChainedStep:
         self.warmed = False  # the first step ran eagerly
         self.captured_warps = 0  # warp launches one replay runs
         self.captured_adams = 0  # Adam kernel launches one replay runs
+        self.captured_sn = 0  # spectral-norm kernel launches one replay runs
         self.stamps = None  # the graph's phase stamps, when captured with tracing on
         self.window_stamps = None  # the last call's (K, P) stamps; row 0 zero if eager
         self._static_in = None
@@ -136,11 +138,12 @@ class ChainedStep:
         for gen in self.generators:
             graph.register_generator_state(gen)
         stamps = _Stamps(windows[0].device) if trace.enabled() else None
-        warps, adams = stn_cuda.captured_count, adam_cuda.captured_count
+        warps, adams, sn = stn_cuda.captured_count, adam_cuda.captured_count, sn_cuda.captured_count
         with torch.cuda.graph(graph):
             _, self._static_out = self._step(state, consts, self._static_in, stamps)
         self.captured_warps = stn_cuda.captured_count - warps
         self.captured_adams = adam_cuda.captured_count - adams
+        self.captured_sn = sn_cuda.captured_count - sn
         self.graph = graph
         self.stamps = stamps
 
@@ -187,6 +190,7 @@ class ChainedStep:
             self.graph.replay()
             stn_cuda.count_replayed(self.captured_warps)
             adam_cuda.count_replayed(self.captured_adams)
+            sn_cuda.count_replayed(self.captured_sn)
             out[i].copy_(self._static_out)
             if stamped is not None:
                 stamped[i].copy_(self.stamps.slots[: len(self.stamps.kinds)])

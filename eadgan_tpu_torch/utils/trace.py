@@ -38,9 +38,10 @@ written as JSON by :func:`write`.  ``EADGAN_TRACE=<path>`` makes
   ``worker.events``, ``worker.submit_blocked``, ``checkpoint.saves``,
   ``checkpoint.bytes``, ``sample.grids``, from the replayed step's
   device stamps (``train/chain.py``) ``step.stamped``, ``step.prepare_ns``,
-  ``step.fwd_bwd_ns`` and ``step.optimizer_ns``, and ``adam.launches``
-  (the Adam kernel's launches, ``ops/adam_cuda.py``, each replay's
-  counted as it is replayed).
+  ``step.fwd_bwd_ns`` and ``step.optimizer_ns``, ``adam.launches``
+  (the Adam kernel's launches, ``ops/adam_cuda.py``) and ``sn.launches``
+  (the spectral norm's kernel launches, ``ops/sn_cuda.py``), each
+  replay's counted as it is replayed.
 """
 
 from __future__ import annotations

@@ -73,6 +73,20 @@ boundary; a step captured in a CUDA graph and replayed against the same
 steps eager, bit for bit; its refusals; and its launches, one a
 ``step()`` eager and counted a replay in the chained rp step.
 
+The spectral norm's kernels (``ops/sn_cuda.py``) against the plain
+version, at CelebA's four discriminator shapes and every shape the rp,
+colored rp and MNIST steps normalize, writing bf16 and float32: sigma
+and ``u'`` within 1e-5 of the plain version's (sums in another order),
+the normalized weight bit-equal to ``(W / s).to(dtype)`` for the
+kernels' own sigma, the weight's gradient within 1e-4 of its largest
+element of autograd through the plain version and within 1e-5 of the
+closed form on the kernels' own vectors in float64; sigma 0 (a zero
+weight) gives ``W`` and a gradient equal to ``G``; eval mode and
+``no_stat_updates`` leave ``u`` and sigma as they were; two runs, and a
+captured graph's replays, hold the same bits as an eager call; the
+launches, one or three a forward and one or two a backward by size,
+counted eager and a replay in the chained rp step.
+
 Tolerances: the warp in float32 2e-5 (nvcc contracts multiply-adds into
 FMA, so a coordinate can land an ulp apart and pick the neighbouring
 texel's weights; bilinear output is continuous, so the error stays
@@ -85,6 +99,8 @@ apart at most).  Its cases run with the probe's small bias and with a
 bias as large as the conv output, which a kernel that drops the bias or
 reads another channel's cannot pass.
 """
+
+import copy
 
 import pytest
 import torch
@@ -834,3 +850,133 @@ def test_adam_launches_counted_per_step_and_replay(cuda):
     torch.cuda.synchronize()
     assert adam_cuda.launch_count == before + 2 + 7 * 2
     assert all(float(s["step"]) == 8 for s in state.opt_info.state.values())
+
+
+# --- the spectral norm's kernels (ops/sn_cuda.py) --------------------------------------------------
+
+# CelebA's discriminator; the rp, colored rp and MNIST steps' layers
+SN_SHAPES = [(128, 3, 4, 4), (256, 128, 4, 4), (512, 256, 4, 4), (1024, 512, 4, 4),
+             (32, 1, 4, 4), (32, 3, 4, 4), (32, 32, 4, 4), (64, 32, 4, 4), (64, 64, 4, 4),
+             (128, 1024), (128, 128), (3, 128), (4, 128), (7, 128),
+             (16, 1, 3, 3), (32, 16, 3, 3), (64, 32, 3, 3), (128, 64, 3, 3), (1, 512), (10, 512),
+             (62, 512)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, None], ids=["bf16", "f32"])
+@pytest.mark.parametrize("shape", SN_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_sn_kernels_match_plain(cuda, shape, dtype):
+    from eadgan_tpu_torch.tools.sn_bench import kernel_vs_plain
+
+    r = kernel_vs_plain(shape, dtype, cuda)
+    assert r["wn_bit_equal"] and r["state_written"], r
+    assert r["sigma_gap"] <= 1e-5 and r["u_gap"] <= 1e-5, r
+    assert r["grad_gap"] <= 1e-4 and r["closed_form_gap"] <= 1e-5, r
+
+
+@pytest.mark.parametrize("shape", [(32, 32, 4, 4), (512, 256, 4, 4)], ids=["one_block", "large"])
+def test_sn_kernels_sigma_zero(cuda, shape):
+    from eadgan_tpu_torch.tools.sn_bench import kernel_vs_plain
+
+    r = kernel_vs_plain(shape, torch.bfloat16, cuda, zero=True)
+    assert r["sigma"] == 0.0 and r["wn_bit_equal"] and r["grad_equal_g"], r
+
+
+def _sn_layer(cuda, shape):
+    from eadgan_tpu_torch.models.layers import SNConv
+
+    layer = SNConv(shape[1], shape[0], 4, 2, 1, dtype=torch.bfloat16).to(cuda)
+    layer.u.copy_(torch.nn.functional.normalize(torch.randn(shape[0], device=cuda), dim=0))
+    return layer
+
+
+@pytest.mark.parametrize("shape", [(32, 32, 4, 4), (512, 256, 4, 4)], ids=["one_block", "large"])
+def test_sn_eval_and_no_stat_updates_leave_state(cuda, shape):
+    from eadgan_tpu_torch.models.layers import no_stat_updates
+
+    layer = _sn_layer(cuda, shape)
+    x = torch.randn(2, shape[1], 8, 8, device=cuda)
+    u, sigma = layer.u.clone(), layer.sigma.clone()
+    with no_stat_updates(layer):
+        layer(x)
+    layer.eval()
+    layer(x)
+    torch.cuda.synchronize()
+    assert torch.equal(layer.u, u) and torch.equal(layer.sigma, sigma)
+    layer.train()
+    out = layer.normalized_weight()
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and not torch.equal(layer.sigma, sigma)
+
+
+@pytest.mark.parametrize("shape", [(32, 32, 4, 4), (512, 256, 4, 4)], ids=["one_block", "large"])
+def test_sn_runs_and_graph_replays_bit_equal(cuda, shape):
+    """Eager calls from copies of one layer give the same bits twice; a
+    forward and backward captured in a CUDA graph and replayed gives the
+    eager call's bits, and is counted as captured, not launched."""
+    from eadgan_tpu_torch.ops import sn_cuda
+
+    torch.manual_seed(0)
+    base = _sn_layer(cuda, shape)
+    g = torch.randn(shape, device=cuda).to(torch.bfloat16)
+
+    def run(layer):
+        out = layer.normalized_weight()
+        (grad,) = torch.autograd.grad(out, layer.weight, g)
+        return out, grad, layer.u, layer.sigma
+
+    runs = []
+    for _ in range(2):
+        layer = copy.deepcopy(base)
+        runs.append([t.clone() for t in run(layer)])
+    layer = copy.deepcopy(base)
+    static = run(copy.deepcopy(base))  # warm-up on a twin, outside the capture
+    per_call = sum(sn_cuda.launches_per_call(layer.weight.numel()))
+    before = sn_cuda.captured_count, sn_cuda.launch_count
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static = run(layer)
+    assert (sn_cuda.captured_count, sn_cuda.launch_count) == (before[0] + per_call, before[1])
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b, c in zip(runs[0], runs[1], static):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+def test_sn_launches_counted_per_step_and_replay(cuda):
+    """The chained gray rp step: its spectral-norm launches an eager step
+    equal the census's (every call through the kernels), captured once and
+    counted again at each replay."""
+    from eadgan_tpu_torch.ops import sn_cuda
+    from eadgan_tpu_torch.tools.sn_bench import census, launches_per_step
+    from eadgan_tpu_torch.train.chain import make_chained_step
+    from eadgan_tpu_torch.train.config import SpritesGanConfig
+    from eadgan_tpu_torch.train.gan_dsprites import init_sprites_gan_state, make_sprites_gan_step
+    from eadgan_tpu_torch.train.pretrain import pxy_encoder
+
+    per_step = launches_per_step(census("rp", 4))
+    config = SpritesGanConfig(batch_size=4)
+    state = init_sprites_gan_state(config, pxy_encoder(False, seed=1), device=cuda, seed=0,
+                                   dtype=torch.bfloat16)
+    img, _ = sprite_warp_inputs(1, "rp", cuda)
+    window = img[:4].contiguous().expand(4, 4, 64, 64, 1)
+    chained = make_chained_step(make_sprites_gan_step(config), generators=(state.rng,))
+    before, captured = sn_cuda.launch_count, sn_cuda.captured_count
+    chained(state, (), window)  # one eager step, the capture, three replays
+    torch.cuda.synchronize()
+    assert sn_cuda.captured_count == captured + per_step and chained.captured_sn == per_step
+    assert sn_cuda.launch_count == before + 4 * per_step
+
+
+def test_sn_kernel_rejects(cuda):
+    from eadgan_tpu_torch.ops import sn_cuda
+
+    w = torch.zeros(8, 4, device=cuda)
+    u, sigma = torch.zeros(8, device=cuda), torch.ones((), device=cuda)
+    with pytest.raises(ValueError, match="contiguous float32"):
+        sn_cuda.spectral_norm(w.t(), torch.zeros(4, device=cuda), sigma)
+    with pytest.raises(ValueError, match="contiguous float32"):
+        sn_cuda.spectral_norm(w.double(), u, sigma)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        sn_cuda.spectral_norm(w, u, sigma, torch.float16)
+    with pytest.raises(ValueError, match="u must be"):
+        sn_cuda.spectral_norm(w, u.cpu(), sigma)
